@@ -1,0 +1,558 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``repro_torch``) on one NVIDIA GPU.
+
+Run from the repository root, no arguments, one card:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
+use), then runs four phases and prints one JSON object per line:
+
+  env          torch/CUDA versions, the card, the kernels' build seconds
+  kernel_grid  every kernel against its plain PyTorch version on the card,
+               over the CPU tests' shape grid and the main path's real
+               shapes; integers and the dequant epilogue must be equal
+  main_path    workload -> build_flow -> compile() -> inference for the
+               four QNN workloads and for TFC/CNV at the paper's widths,
+               batch 256: float64 mode bit-exact against the numpy
+               interpreter, float32 mode (fused epilogues) to 1e-5; ms per
+               batch, and ms per op type from one ``profile()`` call
+  no_fallback  the launch counts of one inference equal what the plan says
+               (so no route ran a plain version instead of its kernel)
+
+then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
+max abs error against the plain version, and at the main path's shape
+``ms``, the kernel's time on the device, beside ``wrapper_ms``, one eager
+call of its wrapper, the plain version, the card's bound and a library
+call where one exists), the ``nvidia-smi`` name/power-limit line, and last
+``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
+then non-zero and no result line is printed.  Without a CUDA device it
+exits with code 2 before doing anything.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device is available", file=sys.stderr)
+    sys.exit(2)
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+
+from repro_torch.core import build_flow                      # noqa: E402
+from repro_torch.core.workloads import (WORKLOADS, make_cnv,  # noqa: E402
+                                        make_tfc)
+from repro_torch.kernels import _build, ops as kops          # noqa: E402
+from repro_torch.obs.trace import (Tracer, get_tracer,       # noqa: E402
+                                   set_tracer)
+
+DEV = torch.device("cuda")
+BATCH = 256
+GRAPH_LAUNCHES = 20      # wrapper calls per CUDA graph in ``device_ms``
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): device memory
+# 3.35 TB/s; int8 tensor cores 1979 TOP/s; 67 TFLOP/s float32 outside the
+# tensor cores, used here for int32 multiply-adds and for compares, which
+# have no tensor-core path.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+ALU_OPS_PER_S = 67e12
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def dev(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call by CUDA events, after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, launches: int, reps: int = 5) -> float:
+    """Milliseconds the device takes per call of ``fn``: ``launches`` calls
+    are captured into one CUDA graph and the graph is replayed, so the
+    host's time per call (Python, ``torch.empty``, the launch) is left
+    out and what remains is the kernel and the gap to the next one."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(graph.replay, reps, warmup=1) / launches
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: dtype/shape {got.dtype}{tuple(got.shape)} vs "
+          f"{want.dtype}{tuple(want.shape)}")
+    err = float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+    check(err == 0.0, f"{what}: kernel differs from its plain version "
+                      f"(max abs err {err})")
+    return err
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+# --------------------------------------------------------------------------
+# phase: env
+# --------------------------------------------------------------------------
+
+def phase_env() -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    _build.load()                         # builds the kernels from csrc/
+    load_s = time.perf_counter() - t0
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls must not run in TF32")
+    return dict(phase="env", python=sys.version.split()[0],
+                torch=torch.__version__, cuda=torch.version.cuda,
+                device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+                kernel_build_s=round(_build.build_seconds, 2),
+                kernel_load_s=round(load_s, 2))
+
+
+# --------------------------------------------------------------------------
+# phase: kernel_grid — each kernel against its plain version, on the card
+# --------------------------------------------------------------------------
+
+def grid_int_matmul(rng) -> dict:
+    worst, cases = 0.0, 0
+
+    def one(x, w, what, **kw):
+        nonlocal worst, cases
+        got = kops.int_matmul(x, w, use_kernel=True, **kw)
+        want = kops.int_matmul(x, w, use_kernel=False, **kw)
+        worst = max(worst, max_abs_err(got, want, f"int_matmul {what}"))
+        cases += 1
+
+    shapes = [(128, 128, 128), (1, 49, 10), (7, 3, 5), (130, 200, 10),
+              (8, 64, 100), (300, 9, 1), (256, 64, 10)]
+    for dt in (np.int8, np.int32):
+        for m, k, n in shapes:
+            x = dev(rng.integers(-128, 128, (m, k)).astype(dt))
+            w = dev(rng.integers(-8, 8, (k, n)).astype(dt))
+            s = dev(rng.uniform(0.01, 0.1, n).astype(np.float32))
+            b = dev(rng.normal(size=n).astype(np.float32))
+            tag = f"{np.dtype(dt).name} {m}x{k}x{n}"
+            one(x, w, tag + " wide")
+            one(x, w, tag + " narrow", acc_bits=12)
+            one(x, w, tag + " narrow->i32", acc_bits=12,
+                out_dtype=torch.int32)
+            one(x, w, tag + " dequant", scale=s, bias=b)
+            one(x, w, tag + " dequant no bias", scale=s, acc_bits=12)
+            one(x, w, tag + " scalar scale", scale=s[:1])
+        # an accumulator that overflows int16: the wrap must match
+        x = dev(rng.integers(-100, 101, (128, 128)).astype(dt))
+        w = dev(rng.integers(-100, 101, (128, 128)).astype(dt))
+        one(x, w, f"{np.dtype(dt).name} int16 overflow", acc_bits=12)
+    # int32 products that wrap modulo 2^32
+    x = dev(rng.integers(-2 ** 20, 2 ** 20, (9, 33)).astype(np.int32))
+    w = dev(rng.integers(-2 ** 20, 2 ** 20, (33, 6)).astype(np.int32))
+    one(x, w, "int32 wrap")
+    # the main path's real shapes: CNV conv (int8, 16-bit accumulator) and
+    # the dense 784 -> 64 layer with int32 operands
+    x = dev(rng.integers(-2, 2, (BATCH * 32 * 32, 576)).astype(np.int8))
+    w = dev(rng.integers(-2, 2, (576, 64)).astype(np.int8))
+    one(x, w, "int8 262144x576x64", acc_bits=12, out_dtype=torch.int32)
+    x = dev(rng.integers(0, 256, (BATCH, 784)).astype(np.int32))
+    w = dev(rng.integers(-2, 2, (784, 64)).astype(np.int32))
+    one(x, w, "int32 256x784x64", acc_bits=20, out_dtype=torch.int32)
+    return dict(cases=cases, max_abs_err=worst)
+
+
+def grid_multithreshold(rng) -> dict:
+    worst, cases = 0.0, 0
+    shapes = [(5, 3, 3), (1, 10, 15), (33, 130, 7), (256, 128, 255),
+              (BATCH * 32 * 32, 64, 3), (BATCH * 32 * 32, 64, 15),
+              (BATCH * 16 * 16, 64, 255)]
+    for dt, tdt in ((np.int32, torch.int32), (np.float32, torch.float32),
+                    (np.float64, torch.float64)):
+        for m, c, n in shapes:
+            # quarter-grid values (truncated to whole numbers for int32):
+            # exact ties are frequent, and ties count
+            x = dev((rng.integers(-2000, 2000, (m, c)) / 4).astype(dt))
+            t = dev(np.sort((rng.integers(-1600, 1600, (n, c)) / 4
+                             ).astype(dt), axis=0))
+            for kw in (dict(out_bias=-1), dict(out_dtype=torch.int32),
+                       dict(out_bias=3, out_dtype=torch.int16)):
+                got = kops.multithreshold(x, t, use_kernel=True, **kw)
+                want = kops.multithreshold(x, t, use_kernel=False, **kw)
+                worst = max(worst, max_abs_err(
+                    got, want, f"multithreshold {tdt} {m}x{c} N={n} {kw}"))
+                cases += 1
+    x = torch.full((8, 4), 10_000, dtype=torch.int32, device=DEV)
+    t = torch.arange(255, dtype=torch.int32, device=DEV)[:, None] \
+        .expand(255, 4)
+    out = kops.multithreshold(x, t, use_kernel=True)
+    check(out.dtype == torch.int16 and int(out.max()) == 255
+          and int(out.min()) == 255, "N=255 output wrapped")
+    return dict(cases=cases + 1, max_abs_err=worst)
+
+
+def grid_quantize(rng) -> dict:
+    worst, cases = 0.0, 0
+    shapes = [(1, 1), (3, 10), (257, 5), (256, 128), (BATCH * 3 * 32, 32),
+              (BATCH, 784)]
+    for dt in (np.float32, np.float64):
+        for m, c in shapes:
+            x = dev((rng.normal(size=(m, c)) * 3).astype(dt))
+            s = dev(rng.uniform(0.01, 0.3, c).astype(np.float32))
+            z = dev(rng.integers(-2, 3, c).astype(np.float32))
+            for kw in (dict(), dict(qmin=-8, qmax=7),
+                       dict(qmin=0, qmax=255, out_dtype=torch.int32)):
+                for sc, zp in ((s, z), (s[:1], z[:1])):
+                    got = kops.quantize(x, sc, zp, use_kernel=True, **kw)
+                    want = kops.quantize(x, sc, zp, use_kernel=False, **kw)
+                    worst = max(worst, max_abs_err(
+                        got, want, f"quantize {np.dtype(dt).name} {m}x{c}"))
+                    cases += 1
+        # x / s lands exactly on k + 0.5: round half to even
+        k = np.arange(-12, 12)
+        x = dev(((k + 0.5) * 0.25).astype(dt).reshape(4, 6))
+        s = torch.tensor([0.25], device=DEV)
+        z = torch.zeros(1, device=DEV)
+        got = kops.quantize(x, s, z, qmin=-8, qmax=7, out_dtype=torch.int32,
+                            use_kernel=True)
+        want = np.clip(np.round(k + 0.5), -8, 7).reshape(4, 6)
+        check(np.array_equal(got.cpu().numpy(), want),
+              "quantize does not round half to even")
+        cases += 1
+    return dict(cases=cases, max_abs_err=worst)
+
+
+def phase_kernel_grid() -> dict:
+    rng = np.random.default_rng(0)
+    out = dict(phase="kernel_grid",
+               int_matmul=grid_int_matmul(rng),
+               multithreshold=grid_multithreshold(rng),
+               quantize=grid_quantize(rng))
+    torch.cuda.synchronize()
+    return out
+
+
+# --------------------------------------------------------------------------
+# kernel times at the main path's shapes
+# --------------------------------------------------------------------------
+
+def time_int_matmul(rng, m, k, n, dt, acc_bits, with_library) -> dict:
+    x = dev(rng.integers(-2, 2, (m, k)).astype(dt))
+    w = dev(rng.integers(-2, 2, (k, n)).astype(dt))
+    kw = dict(acc_bits=acc_bits, out_dtype=torch.int32)
+    def kernel():
+        return kops.int_matmul(x, w, use_kernel=True, **kw)
+    wrapper = time_ms(kernel, 10)
+    ms = device_ms(kernel, GRAPH_LAUNCHES)
+    plain = time_ms(lambda: kops.int_matmul(x, w, use_kernel=False, **kw),
+                    3, warmup=1)
+    size = np.dtype(dt).itemsize
+    b_ms, by = bound(m * k * size + k * n * size + m * n * 4, 2.0 * m * k * n,
+                     INT8_OPS_PER_S if size == 1 else ALU_OPS_PER_S)
+    lib = None
+    if with_library:      # timed here only; the port never calls it
+        lib = time_ms(lambda: torch._int_mm(x, w), 10)
+    return dict(shape=f"{np.dtype(dt).name} {m}x{k}x{n} acc{acc_bits}",
+                ms=ms, wrapper_ms=wrapper, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                library_ms=lib)
+
+
+def time_multithreshold(rng, m, c, n, dt) -> dict:
+    x = dev(rng.integers(-500, 500, (m, c)).astype(dt))
+    t = dev(np.sort(rng.integers(-400, 400, (n, c)), axis=0).astype(dt))
+    kw = dict(out_dtype=torch.int32)
+    def kernel():
+        return kops.multithreshold(x, t, use_kernel=True, **kw)
+
+    def library():    # timed here only; the port never calls it
+        return torch.searchsorted(t.T.contiguous(), x.T.contiguous(),
+                                  right=True)
+    wrapper = time_ms(kernel, 10)
+    ms = device_ms(kernel, GRAPH_LAUNCHES)
+    plain = time_ms(
+        lambda: kops.multithreshold(x, t, use_kernel=False, **kw),
+        2, warmup=1)
+    check(torch.equal(library().T.to(torch.int32), kernel()),
+          f"multithreshold {m}x{c} N={n}: torch.searchsorted disagrees")
+    lib = time_ms(library, 5, warmup=1)
+    size = np.dtype(dt).itemsize
+    b_ms, by = bound(m * c * size + n * c * size + m * c * 4,
+                     float(m) * c * n, ALU_OPS_PER_S)
+    return dict(shape=f"{np.dtype(dt).name} {m}x{c} N={n}", ms=ms,
+                wrapper_ms=wrapper, plain_ms=plain, bound_ms=b_ms,
+                bound_by=by, library_ms=lib)
+
+
+def time_quantize(rng, m, c, dt) -> dict:
+    x = dev((rng.normal(size=(m, c)) * 3).astype(dt))
+    s = torch.tensor([1.0 / 127], device=DEV)
+    z = torch.zeros(1, device=DEV)
+    kw = dict(qmin=0, qmax=255, out_dtype=torch.int32)
+    def kernel():
+        return kops.quantize(x, s, z, use_kernel=True, **kw)
+    wrapper = time_ms(kernel, 20)
+    ms = device_ms(kernel, GRAPH_LAUNCHES)
+    plain = time_ms(lambda: kops.quantize(x, s, z, use_kernel=False, **kw),
+                    20)
+    size = np.dtype(dt).itemsize
+    # divide, add, round, two clamps per element
+    b_ms, by = bound(m * c * size + 8 + m * c * 4, 5.0 * m * c,
+                     ALU_OPS_PER_S)
+    # no single PyTorch call computes it: torch.quantize_per_tensor
+    # multiplies by a reciprocal and adds the zero point after rounding
+    return dict(shape=f"{np.dtype(dt).name} {m}x{c}", ms=ms,
+                wrapper_ms=wrapper, plain_ms=plain, bound_ms=b_ms,
+                bound_by=by, library_ms=None)
+
+
+def phase_kernel_times() -> dict:
+    """The first entry of each list is the shape the ``kernels`` line
+    reports: the largest call of CNV-w2a2 (ch=64, img=32) at batch 256."""
+    rng = np.random.default_rng(1)
+    hw = BATCH * 32 * 32
+    return dict(
+        phase="kernel_times",
+        note="ms: device time per launch, from replays of a CUDA graph of "
+             f"{GRAPH_LAUNCHES} wrapper calls; wrapper_ms, plain_ms, "
+             "library_ms: per eager call by CUDA events after warm-up, "
+             "host time included; inputs above the L2 size are cold by "
+             "their size, smaller ones are warm",
+        int_matmul=[
+            time_int_matmul(rng, hw, 576, 64, np.int8, 12, True),
+            time_int_matmul(rng, hw, 27, 64, np.int8, 12, False),
+            time_int_matmul(rng, hw // 16, 2304, 256, np.int8, 12, True),
+            time_int_matmul(rng, BATCH, 784, 64, np.int8, 15, True),
+            time_int_matmul(rng, BATCH, 784, 64, np.int32, 20, False),
+            time_int_matmul(rng, BATCH * 16 * 16, 9, 1, np.int8, 10, False),
+        ],
+        multithreshold=[
+            time_multithreshold(rng, hw, 64, 3, np.int32),
+            time_multithreshold(rng, hw, 64, 15, np.int32),
+            time_multithreshold(rng, hw // 4, 64, 255, np.int32),
+            time_multithreshold(rng, hw, 64, 3, np.float32),
+            time_multithreshold(rng, hw, 64, 3, np.float64),
+            time_multithreshold(rng, hw // 4, 64, 255, np.float64),
+            time_multithreshold(rng, BATCH, 64, 3, np.int32),
+        ],
+        quantize=[
+            time_quantize(rng, BATCH * 3 * 32, 32, np.float32),
+            time_quantize(rng, BATCH * 3 * 32, 32, np.float64),
+            time_quantize(rng, BATCH, 784, np.float32),
+        ])
+
+
+# --------------------------------------------------------------------------
+# phases: main_path and no_fallback
+# --------------------------------------------------------------------------
+
+CONFIGS = [(name, fn, {}) for name, fn in WORKLOADS.items()] + [
+    ("CNV-w2a2(ch=64,img=32)", make_cnv, dict(ch=64, img=32)),
+    ("TFC-w2a2(in_dim=784)", make_tfc, dict(in_dim=784)),
+]
+
+
+def feeds_for(model, batch: int, seed: int) -> dict:
+    shape = (batch,) + tuple(model.metadata["input_shape"][1:])
+    (inp,) = model.graph.inputs
+    r = model.input_ranges[inp]
+    lo = np.broadcast_to(np.asarray(r.lo, np.float64), shape)
+    hi = np.broadcast_to(np.asarray(r.hi, np.float64), shape)
+    return {inp: np.random.default_rng(seed).uniform(lo, hi, size=shape)}
+
+
+def expected_launches(model, compiled) -> dict:
+    """Launches one inference must make, from the plan: one per quantize
+    and multithreshold node, one per group of each integer matmul/conv."""
+    groups = {n.name: int(n.attrs.get("groups", 1))
+              for n in model.graph.nodes if n.op_type == "Conv"}
+    want = dict(int_matmul=0, multithreshold=0, quantize=0)
+    for op in compiled.plan:
+        if op.kind in ("int_matmul", "fused:int_matmul+epilogue"):
+            want["int_matmul"] += 1
+        elif op.kind in ("int_conv", "fused:int_conv+epilogue"):
+            want["int_matmul"] += groups[op.node_name]
+        elif op.kind in want:
+            want[op.kind] += 1
+    return want
+
+
+def profile_by_op(compiled, feeds) -> dict:
+    """One ``profile()`` call: ms per op type, each step timed on the host
+    with a device synchronise after it (so the steps do not overlap and
+    their sum exceeds a normal call's time)."""
+    tracer, prev = Tracer(enabled=True), get_tracer()
+    set_tracer(tracer)
+    try:
+        compiled.profile(feeds)
+    finally:
+        set_tracer(prev)
+    by_op: dict = {}
+    for sp in tracer.spans:
+        if sp.name.startswith("kernel:"):
+            op = sp.name.split(":")[1]
+            by_op[op] = by_op.get(op, 0.0) + sp.dur_us / 1e3
+    return {k: round(v, 4) for k, v in by_op.items()}
+
+
+def run_config(name, factory, kwargs) -> dict:
+    t0 = time.perf_counter()
+    model = build_flow(factory(**kwargs)).model
+    flow_s = time.perf_counter() - t0
+
+    # float64, kernels on the card: the integer core is bit-exact against
+    # the numpy interpreter, the outputs agree to 1e-12
+    exact = model.compile(dtype=torch.float64)
+    check(exact.device.type == "cuda", "compile() did not pick the card")
+    check(len(exact.int_tensors) > 0, f"{name}: no integer tensors")
+    exact = model.compile(dtype=torch.float64,
+                          extra_outputs=exact.int_tensors)
+    small = feeds_for(model, 4, seed=0)
+    want = model.execute(small, record_all=True)
+    got = exact(small)
+    for t in exact.int_tensors:
+        check(got[t].dtype == np.int32
+              and np.array_equal(got[t].astype(np.float64), want[t]),
+              f"{name}: integer tensor {t} is not bit-exact")
+    for o in model.graph.outputs:
+        check(np.allclose(got[o], want[o], rtol=1e-12, atol=1e-12),
+              f"{name}: float64 output {o} differs from the interpreter")
+
+    # float32 with fused epilogues at the full batch
+    fast = model.compile()
+    check(fast.dtype == torch.float32 and fast.device.type == "cuda",
+          "default compile() must be float32 on the card")
+    feeds = feeds_for(model, BATCH, seed=1)
+    (inp,) = model.graph.inputs
+    before = dict(_build.LAUNCH_COUNTS)
+    out = fast(feeds)
+    launched = {k: v - before.get(k, 0)
+                for k, v in _build.LAUNCH_COUNTS.items()}
+    expect = expected_launches(model, fast)
+    ref = model.execute({inp: feeds[inp][:4]})
+    for o in model.graph.outputs:
+        check(out[o].shape[0] == BATCH and out[o].dtype == np.float32
+              and bool(np.isfinite(out[o]).all()),
+              f"{name}: float32 output {o} has a wrong shape or is not "
+              f"finite")
+        scale = max(float(np.abs(ref[o]).max()), 1.0)
+        check(np.allclose(out[o][:4].astype(np.float64), ref[o], rtol=1e-5,
+                          atol=1e-5 * scale),
+              f"{name}: float32 output {o} differs from the interpreter")
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fast(feeds)                      # returns numpy: ends synchronised
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    return dict(
+        step_ms_by_op=profile_by_op(fast, feeds),
+        name=name, flow_s=round(flow_s, 3), nodes=len(model.graph.nodes),
+        kernel_calls=fast.kernel_calls,
+        kernel_calls_float64=exact.kernel_calls,
+        acc_bits={op.node_name: op.acc_bits for op in fast.plan
+                  if op.acc_bits is not None},
+        int_tensors_exact=len(exact.int_tensors), batch=BATCH,
+        ms_per_batch=ms, samples_per_s=BATCH / ms * 1e3,
+        launches=launched, expected_launches=expect)
+
+
+def phase_main_path() -> dict:
+    # every count to 0 just before the main path, read just after: the
+    # launches of the kernel_grid comparisons do not count
+    _build.reset_launch_counts()
+    results = [run_config(*cfg) for cfg in CONFIGS]
+    total = {k: _build.LAUNCH_COUNTS.get(k, 0)
+             for k in ("int_matmul", "multithreshold", "quantize")}
+    for k, v in total.items():
+        check(v > 0, f"the main path never launched kernel {k}")
+    return dict(phase="main_path", configs=results, launches=total)
+
+
+def phase_no_fallback(results) -> dict:
+    for r in results:
+        check(r["launches"] == r["expected_launches"],
+              f"{r['name']}: launched {r['launches']}, the plan needs "
+              f"{r['expected_launches']}")
+    return dict(phase="no_fallback", ok=True,
+                per_config={r["name"]: r["launches"] for r in results})
+
+
+# --------------------------------------------------------------------------
+
+KERNEL_META = {
+    "int_matmul": dict(
+        source="src/repro_torch/kernels/csrc/int_matmul.cu",
+        replaces="src/repro/kernels/int_matmul.py:53"),
+    "multithreshold": dict(
+        source="src/repro_torch/kernels/csrc/multithreshold.cu",
+        replaces="src/repro/kernels/multithreshold.py:60"),
+    "quantize": dict(
+        source="src/repro_torch/kernels/csrc/quantize.cu",
+        replaces="src/repro/kernels/quantize.py:26"),
+}
+
+
+def main() -> None:
+    env = phase_env()
+    emit(env)
+    grid = phase_kernel_grid()
+    emit(grid)
+    main_path = phase_main_path()
+    emit(main_path)
+    emit(phase_no_fallback(main_path["configs"]))
+    times = phase_kernel_times()
+    emit(times)
+    kernels = []
+    for name, meta in KERNEL_META.items():
+        t = times[name][0]
+        kernels.append(dict(
+            name=name, route="cuda", source=meta["source"],
+            replaces=meta["replaces"],
+            launches=main_path["launches"][name],
+            max_abs_err=grid[name]["max_abs_err"], ms=t["ms"],
+            wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            shape=t["shape"]))
+    emit(dict(kernels=kernels))
+    print(env["nvidia_smi"], flush=True)
+    emit(dict(ok=True, device=dict(
+        platform="gpu", kind=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count())))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,150 @@
+"""Build and load the CUDA kernels of ``csrc/`` (at first use, never at
+import), and keep the per-kernel launch counts.
+
+The sources have a plain C interface (raw pointers, sizes, the stream; no
+PyTorch header), so ``nvcc`` compiles each in seconds.  One ``nvcc -c``
+process per source runs at the same time, one link makes the shared
+library, ``ctypes`` loads it.  The library's file name carries a hash of
+the sources and flags, so an unchanged tree reuses its build and a changed
+source never loads a stale one.  A build failure raises with the
+compiler's output; nothing falls back to the plain versions.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import Dict, List, Optional
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCES = ("int_matmul.cu", "multithreshold.cu", "quantize.cu")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+#: launches per kernel since the last :func:`reset_launch_counts`; each
+#: wrapper adds one where it launches its kernel and nowhere else
+LAUNCH_COUNTS: Dict[str, int] = collections.Counter()
+
+_lib: Optional[ctypes.CDLL] = None
+#: wall seconds the last real build took (0.0 when a cached library loaded)
+build_seconds: float = 0.0
+
+
+def reset_launch_counts() -> None:
+    LAUNCH_COUNTS.clear()
+
+
+def build_dir() -> pathlib.Path:
+    """``<checkout>/build/repro_torch_kernels`` (git-ignored)."""
+    return (pathlib.Path(__file__).resolve().parents[3]
+            / "build" / "repro_torch_kernels")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): the CUDA "
+        "kernels of repro_torch cannot be built on this machine")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.encode())
+        h.update((CSRC / src).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: List[List[str]], log: pathlib.Path) -> None:
+    """Start every command at once, wait for all, raise on any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    with log.open("a") as fh:
+        for c, out in zip(cmds, outputs):
+            fh.write("$ " + " ".join(c) + "\n" + out + "\n")
+    failed = [(c, out) for c, p, out in zip(cmds, procs, outputs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(
+            "$ " + " ".join(c) + "\n" + out for c, out in failed))
+
+
+def _build(out: pathlib.Path) -> None:
+    nvcc = _nvcc()
+    bdir = out.parent
+    bdir.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    log = bdir / f"{out.stem}.log"
+    objs = [bdir / f"{tag}.{pathlib.Path(s).stem}.o" for s in SOURCES]
+    tmp = bdir / f"{tag}.so"
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+                  for s, o in zip(SOURCES, objs)], log)
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], log)
+        os.replace(tmp, out)      # atomic: a concurrent build loses nothing
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.sira_int_matmul.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, i, p]
+    lib.sira_int_matmul.restype = i
+    lib.sira_multithreshold.argtypes = [p, p, p, ll, ll, i, i, i, i, p]
+    lib.sira_multithreshold.restype = i
+    lib.sira_quantize.argtypes = [p, p, p, p, ll, ll, i, i, i, i, i, p]
+    lib.sira_quantize.restype = i
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' shared library, built on the first call."""
+    global _lib, build_seconds
+    if _lib is None:
+        out = build_dir() / f"libsira_kernels_{_digest()}.so"
+        if not out.exists():
+            t0 = time.perf_counter()
+            _build(out)
+            build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(out))
+        _declare(lib)
+        _lib = lib
+    return _lib
+
+
+MAX_GRID_X = 2 ** 31 - 1
+MAX_GRID_Y = 65535
+
+
+def check_grid(name: str, blocks_x: int, blocks_y: int) -> None:
+    """Raise if a launch of ``blocks_x`` by ``blocks_y`` thread blocks
+    exceeds what the card takes: the launch would be refused with a bare
+    error number."""
+    if blocks_x > MAX_GRID_X or blocks_y > MAX_GRID_Y:
+        raise ValueError(
+            f"{name} kernel: {blocks_x} x {blocks_y} thread blocks exceed "
+            f"the grid limit of {MAX_GRID_X} x {MAX_GRID_Y}; split the "
+            f"input")
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if the launch of kernel ``name`` was refused (``err`` is the
+    ``cudaError_t`` its launcher returned); a refused launch never runs and
+    a later synchronize does not report it."""
+    if err != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name!r} failed to launch: cudaError {err}")
