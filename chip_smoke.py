@@ -6,12 +6,14 @@ Run from the repository root, no arguments, one card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
-use), then runs four phases and prints one JSON object per line:
+use), then runs six phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds
   kernel_grid  every kernel against its plain PyTorch version on the card,
-               over the CPU tests' shape grid and the main path's real
-               shapes; integers and the dequant epilogue must be equal
+               over the CPU tests' shape grid and the main paths' real
+               shapes; integers and the dequant epilogue must be equal,
+               flash attention within 2e-5 (float32) or one output ulp
+               (bfloat16/float16)
   main_path    workload -> build_flow -> compile() -> inference for the
                four QNN workloads and for TFC/CNV at the paper's widths,
                batch 256: float64 mode bit-exact against the numpy
@@ -19,8 +21,17 @@ use), then runs four phases and prints one JSON object per line:
                batch, and ms per op type from one ``profile()`` call
   no_fallback  the launch counts of one inference equal what the plan says
                (so no route ran a plain version instead of its kernel)
+  kernel_times each kernel's device time, wrapper, plain version, bound
+               and library call at the main paths' shapes
+  lm_prefill   the LM slice: qwen2-1.5b at full width (28 layers) with
+               seeded random weights.  float32, B=1, S=1024: logits with
+               the flash-attention kernel against plain attention, and
+               token-by-token ``decode_step`` against ``forward``; one
+               kernel launch per layer.  bfloat16 (the published dtype):
+               ms per prefill, tokens/s and peak memory at B=4, S=2048 and
+               B=1, S=32768
 
-then a ``{"kernels": [...]}`` line (per kernel: launches on the main path,
+then a ``{"kernels": [...]}`` line (per kernel: launches on its path,
 max abs error against the plain version, and at the main path's shape
 ``ms``, the kernel's time on the device, beside ``wrapper_ms``, one eager
 call of its wrapper, the plain version, the card's bound and a library
@@ -31,6 +42,8 @@ exits with code 2 before doing anything.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -46,10 +59,16 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import get_config                  # noqa: E402
 from repro_torch.core import build_flow                      # noqa: E402
 from repro_torch.core.workloads import (WORKLOADS, make_cnv,  # noqa: E402
                                         make_tfc)
 from repro_torch.kernels import _build, ops as kops          # noqa: E402
+from repro_torch.kernels.flash_attention import (            # noqa: E402
+    flash_attention_fwd)
+from repro_torch.kernels.ref import flash_attention_ref      # noqa: E402
+from repro_torch.models import attention as lm_attention     # noqa: E402
+from repro_torch.models import get_model                     # noqa: E402
 from repro_torch.obs.trace import (Tracer, get_tracer,       # noqa: E402
                                    set_tracer)
 
@@ -58,12 +77,21 @@ BATCH = 256
 GRAPH_LAUNCHES = 20      # wrapper calls per CUDA graph in ``device_ms``
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): device memory
-# 3.35 TB/s; int8 tensor cores 1979 TOP/s; 67 TFLOP/s float32 outside the
-# tensor cores, used here for int32 multiply-adds and for compares, which
-# have no tensor-core path.
+# 3.35 TB/s; int8 tensor cores 1979 TOP/s; bf16/fp16 tensor cores 989
+# TFLOP/s; 67 TFLOP/s float32 outside the tensor cores, used here for
+# int32 multiply-adds, for compares, which have no tensor-core path, and
+# for exact float32 attention.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 ALU_OPS_PER_S = 67e12
+
+# the LM slice: qwen2-1.5b's attention layer (B=1, S=4096) and its runs
+LM_ARCH = "qwen2-1.5b"
+LM_SEED = 0
+FA_LAYER = dict(B=1, S=4096, H=12, KV=2, hd=128)
+LM_F32 = (1, 1024)                        # (B, S) of the float32 checks
+LM_BF16 = ((4, 2048, 3), (1, 32768, 2))   # (B, S, timed calls), bfloat16
 
 
 def check(cond: bool, msg: str) -> None:
@@ -256,12 +284,80 @@ def grid_quantize(rng) -> dict:
     return dict(cases=cases, max_abs_err=worst)
 
 
+def ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bfloat16 / float16 numbers at |x|."""
+    bits = {torch.bfloat16: 7, torch.float16: 10}[x.dtype]
+    e = torch.floor(torch.log2(x.double().abs().clamp_min(2.0 ** -14)))
+    return torch.exp2(e - bits)
+
+
+def flash_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Max abs error of the kernel against its plain version; raises
+    beyond 2e-5 (absolute and relative) in float32 and beyond one ulp of
+    the plain version's output in bfloat16 / float16."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: dtype/shape {got.dtype}{tuple(got.shape)} vs "
+          f"{want.dtype}{tuple(want.shape)}")
+    d = (got.double() - want.double()).abs()
+    if got.dtype == torch.float32:
+        ok = d <= 2e-5 + 2e-5 * want.double().abs()
+    else:
+        ok = d <= ulp(want)
+    check(bool(ok.all()) and bool(torch.isfinite(got).all()),
+          f"{what}: kernel differs from its plain version (max abs err "
+          f"{float(d.max())})")
+    return float(d.max())
+
+
+def grid_flash_attention() -> dict:
+    worst, cases = 0.0, 0
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    L = FA_LAYER
+    grid = [  # (B, Sq, Sk, H, KV, hd, dtype, keywords)
+        # the CPU tests' grid (the reference's own kernel test)
+        (2, 128, 128, 4, 2, 64, torch.float32, {}),
+        (1, 256, 256, 8, 8, 64, torch.float32, dict(logit_cap=50.0)),
+        (2, 128, 128, 6, 2, 32, torch.float32, {}),
+        # ragged, window, q_offset, cap, masked rows, non-causal, hd 256
+        (2, 100, 100, 4, 2, 32, torch.float32, {}),
+        (1, 300, 300, 4, 2, 16, torch.float32, dict(window=37)),
+        (2, 24, 88, 4, 2, 24, torch.float32, dict(q_offset=64)),
+        (1, 33, 97, 4, 2, 16, torch.float32,
+         dict(q_offset=64, window=16, logit_cap=30.0)),
+        (1, 16, 32, 4, 2, 16, torch.float32, dict(q_offset=64, window=8)),
+        (1, 40, 70, 2, 1, 16, torch.float32, dict(causal=False, window=12)),
+        (1, 130, 130, 8, 4, 256, torch.float32, dict(logit_cap=50.0)),
+        (1, 700, 700, 8, 4, 256, torch.bfloat16,
+         dict(window=256, logit_cap=50.0)),
+        (2, 200, 200, 12, 2, 128, torch.bfloat16, {}),
+        (1, 150, 150, 4, 2, 64, torch.float16, {}),
+        # the slice's real layer shape, float32 and bfloat16
+        (L["B"], L["S"], L["S"], L["H"], L["KV"], L["hd"], torch.float32,
+         {}),
+        (L["B"], L["S"], L["S"], L["H"], L["KV"], L["hd"], torch.bfloat16,
+         {}),
+    ]
+    for B, Sq, Sk, H, KV, hd, dt, kw in grid:
+        q = torch.randn((B, Sq, H, hd), generator=gen, device=DEV).to(dt)
+        k = torch.randn((B, Sk, KV, hd), generator=gen, device=DEV).to(dt)
+        v = torch.randn((B, Sk, KV, hd), generator=gen, device=DEV).to(dt)
+        got = flash_attention_fwd(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        worst = max(worst, flash_err(
+            got, want, f"flash_attention {str(dt)[6:]} B{B} Sq{Sq} Sk{Sk} "
+                       f"H{H} KV{KV} hd{hd} {kw}"))
+        cases += 1
+        del q, k, v, got, want
+    return dict(cases=cases, max_abs_err=worst)
+
+
 def phase_kernel_grid() -> dict:
     rng = np.random.default_rng(0)
     out = dict(phase="kernel_grid",
                int_matmul=grid_int_matmul(rng),
                multithreshold=grid_multithreshold(rng),
-               quantize=grid_quantize(rng))
+               quantize=grid_quantize(rng),
+               flash_attention=grid_flash_attention())
     torch.cuda.synchronize()
     return out
 
@@ -339,9 +435,48 @@ def time_quantize(rng, m, c, dt) -> dict:
                 bound_by=by, library_ms=None)
 
 
+def time_flash_attention(dt) -> dict:
+    L = FA_LAYER
+    B, S, H, KV, hd = L["B"], L["S"], L["H"], L["KV"], L["hd"]
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    q = torch.randn((B, S, H, hd), generator=gen, device=DEV).to(dt)
+    k = torch.randn((B, S, KV, hd), generator=gen, device=DEV).to(dt)
+    v = torch.randn((B, S, KV, hd), generator=gen, device=DEV).to(dt)
+
+    def kernel():
+        return flash_attention_fwd(q, k, v)
+
+    def library():       # timed here only; the port never calls it
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+    wrapper = time_ms(kernel, 10)
+    ms = device_ms(kernel, GRAPH_LAUNCHES)
+    plain = time_ms(lambda: flash_attention_ref(q, k, v), 3, warmup=1)
+    lib = time_ms(library, 10)
+    lib_diff = float((library().double() - kernel().double()).abs().max())
+    size = q.element_size()
+    # the causal mask keeps S(S+1)/2 query-key pairs: the work these
+    # inputs need
+    ops = 4.0 * B * H * hd * (S * (S + 1) // 2)
+    b_ms, by = bound((2 * q.numel() + k.numel() + v.numel()) * size, ops,
+                     ALU_OPS_PER_S if dt == torch.float32
+                     else BF16_OPS_PER_S)
+    return dict(shape=f"{str(dt)[6:]} B{B} S{S} H{H} KV{KV} hd{hd} causal",
+                ms=ms, wrapper_ms=wrapper, plain_ms=plain, bound_ms=b_ms,
+                bound_by=by, library_ms=lib,
+                library="F.scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True)",
+                library_max_abs_diff=lib_diff,
+                bound_peak="989 TFLOP/s bf16 tensor cores"
+                if dt != torch.float32 else "67 TFLOP/s float32 (exact "
+                "float32 has no tensor-core path)")
+
+
 def phase_kernel_times() -> dict:
     """The first entry of each list is the shape the ``kernels`` line
-    reports: the largest call of CNV-w2a2 (ch=64, img=32) at batch 256."""
+    reports: the largest call of CNV-w2a2 (ch=64, img=32) at batch 256,
+    and for flash attention one bfloat16 layer of qwen2-1.5b at S=4096."""
     rng = np.random.default_rng(1)
     hw = BATCH * 32 * 32
     return dict(
@@ -372,7 +507,9 @@ def phase_kernel_times() -> dict:
             time_quantize(rng, BATCH * 3 * 32, 32, np.float32),
             time_quantize(rng, BATCH * 3 * 32, 32, np.float64),
             time_quantize(rng, BATCH, 784, np.float32),
-        ])
+        ],
+        flash_attention=[time_flash_attention(torch.bfloat16),
+                         time_flash_attention(torch.float32)])
 
 
 # --------------------------------------------------------------------------
@@ -512,6 +649,129 @@ def phase_no_fallback(results) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase: lm_prefill — the LM slice at full width
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the model's prefill attention to the plain version on the
+    card (what the kernel's logits are compared with)."""
+    kernel = lm_attention.flash_attention
+    lm_attention.flash_attention = flash_attention_ref
+    try:
+        yield
+    finally:
+        lm_attention.flash_attention = kernel
+
+
+def lm_model(cfg):
+    return get_model(cfg).init(
+        torch.Generator(device=DEV).manual_seed(LM_SEED))
+
+
+def lm_tokens(cfg, B, S):
+    gen = torch.Generator(device=DEV).manual_seed(LM_SEED + 1)
+    return torch.randint(0, cfg.vocab, (B, S), generator=gen, device=DEV)
+
+
+def lm_float32_checks(cfg) -> dict:
+    """float32 at ``LM_F32``: kernel against plain attention, decode
+    against prefill.  Tolerances relative to the logit scale: 1e-4 for the
+    attention route (float32 sums in another order), 1e-3 for decode (the
+    reference's own test allows rtol 1e-3: every product has other shapes
+    and so other cuBLAS reductions)."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = lm_model(cfg32)
+    B, S = LM_F32
+    toks = lm_tokens(cfg, B, S)
+    V = cfg.vocab
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = _build.LAUNCH_COUNTS["flash_attention"]
+    got = model(toks)
+    peak = torch.cuda.max_memory_allocated()
+    launches = _build.LAUNCH_COUNTS["flash_attention"] - before
+    check(launches == cfg.n_layers,
+          f"float32 forward launched flash_attention {launches} times, "
+          f"not once per layer ({cfg.n_layers})")
+    check(got.shape == (B, S, cfg.vocab_padded)
+          and bool(torch.isfinite(got[..., :V]).all()),
+          "float32 logits: wrong shape or not finite")
+    with plain_attention():
+        want = model(toks)
+    scale = float(want[..., :V].abs().max())
+    err = float((got[..., :V] - want[..., :V]).abs().max())
+    check(err <= 1e-4 * scale, f"float32 logits: kernel vs plain attention "
+                               f"{err} > 1e-4 * {scale}")
+    del want
+    t0 = time.perf_counter()
+    cache = model.init_cache(B, S)
+    dec_err = 0.0
+    for t in range(S):
+        lg, cache = model.decode_step(toks[:, t:t + 1], cache, t)
+        dec_err = max(dec_err, float((lg[:, 0, :V] - got[:, t, :V])
+                                     .abs().max()))
+    decode_s = time.perf_counter() - t0
+    check(dec_err <= 1e-3 * scale, f"decode_step vs forward {dec_err} > "
+                                   f"1e-3 * {scale}")
+    del model, cache, got, lg
+    torch.cuda.empty_cache()
+    return dict(dtype="float32", B=B, S=S, launches_per_forward=launches,
+                logit_scale=scale, kernel_vs_plain_max_abs_err=err,
+                decode_vs_forward_max_abs_err=dec_err,
+                decode_all_steps_s=decode_s,
+                memory_allocated_before=resident, max_memory_allocated=peak)
+
+
+def lm_bf16_run(model, cfg, B, S, reps) -> dict:
+    toks = lm_tokens(cfg, B, S)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = _build.LAUNCH_COUNTS["flash_attention"]
+    out = model(toks)                              # warm-up and checks
+    peak = torch.cuda.max_memory_allocated()       # before the checks
+    launches = _build.LAUNCH_COUNTS["flash_attention"] - before
+    check(launches == cfg.n_layers,
+          f"bf16 B={B} S={S}: {launches} flash_attention launches, not "
+          f"{cfg.n_layers}")
+    check(out.shape == (B, S, cfg.vocab_padded) and out.dtype ==
+          torch.bfloat16 and bool(torch.isfinite(out[..., :cfg.vocab]).all())
+          and bool((out[..., cfg.vocab:] == -1e30).all()),
+          f"bf16 B={B} S={S}: logits wrong in shape, type or value")
+    del out
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        model(toks)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    return dict(dtype="bfloat16", B=B, S=S, ms_per_prefill=ms,
+                tokens_per_s=B * S / ms * 1e3, reps=reps,
+                launches_per_forward=launches,
+                memory_allocated_before=resident, max_memory_allocated=peak)
+
+
+def phase_lm_prefill() -> dict:
+    # counts to 0 just before this path, read just after
+    _build.reset_launch_counts()
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+           cfg.vocab_padded) == (28, 1536, 12, 2, 8960, 152064),
+          f"{LM_ARCH} is not at its published width")
+    runs = [lm_float32_checks(cfg)]
+    model = lm_model(cfg)
+    runs += [lm_bf16_run(model, cfg, B, S, reps) for B, S, reps in LM_BF16]
+    del model
+    torch.cuda.empty_cache()
+    return dict(phase="lm_prefill", arch=LM_ARCH, seed=LM_SEED,
+                params=cfg.param_count(), runs=runs,
+                note="ms_per_prefill: host clock around forward calls "
+                     "ended by a synchronize, after one warm call",
+                launches=dict(flash_attention=_build.LAUNCH_COUNTS[
+                    "flash_attention"]))
+
+
+# --------------------------------------------------------------------------
 
 KERNEL_META = {
     "int_matmul": dict(
@@ -523,6 +783,9 @@ KERNEL_META = {
     "quantize": dict(
         source="src/repro_torch/kernels/csrc/quantize.cu",
         replaces="src/repro/kernels/quantize.py:26"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:66"),
 }
 
 
@@ -536,13 +799,16 @@ def main() -> None:
     emit(phase_no_fallback(main_path["configs"]))
     times = phase_kernel_times()
     emit(times)
+    lm = phase_lm_prefill()           # last: it holds the card's memory
+    emit(lm)
+    launches = dict(main_path["launches"], **lm["launches"])
     kernels = []
     for name, meta in KERNEL_META.items():
         t = times[name][0]
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"],
-            launches=main_path["launches"][name],
+            launches=launches[name],
             max_abs_err=grid[name]["max_abs_err"], ms=t["ms"],
             wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],

@@ -22,7 +22,8 @@ import time
 from typing import Dict, List, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("int_matmul.cu", "multithreshold.cu", "quantize.cu")
+SOURCES = ("int_matmul.cu", "multithreshold.cu", "quantize.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -102,13 +103,17 @@ def _build(out: pathlib.Path) -> None:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float)
     lib.sira_int_matmul.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, i, p]
     lib.sira_int_matmul.restype = i
     lib.sira_multithreshold.argtypes = [p, p, p, ll, ll, i, i, i, i, p]
     lib.sira_multithreshold.restype = i
     lib.sira_quantize.argtypes = [p, p, p, p, ll, ll, i, i, i, i, i, p]
     lib.sira_quantize.restype = i
+    lib.sira_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, ll,
+                                         ll, i, f, f, i, p]
+    lib.sira_flash_attention.restype = i
 
 
 def load() -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels (correctness references).
+"""Plain PyTorch versions of the four kernels (correctness references).
 
 They run on any device.  The tests and the CPU device use them; on the
 card they are only what a kernel is held against, never a route of the
@@ -89,3 +89,38 @@ def quantize_ref(x: torch.Tensor, scale: torch.Tensor,
                  out_dtype=torch.int8) -> torch.Tensor:
     q = torch.round(x / scale.reshape(1, -1) + zero_point.reshape(1, -1))
     return torch.clamp(q, qmin, qmax).to(out_dtype)
+
+
+#: the reference's finite mask value (never -inf: a fully masked row or
+#: tile must stay finite)
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0,
+                        logit_cap: float = 0.0) -> torch.Tensor:
+    """Materialised-softmax attention, q (B, Sq, H, hd), k/v (B, Sk, KV,
+    hd), H = KV·g; query h reads KV head h // g.  All arithmetic in
+    float32 (q cast and scaled by hd^-0.5 before the dot), output in q's
+    dtype.  Query i sits at position ``q_offset + i``, key j at j;
+    ``causal`` keeps keys at or before the query, ``window > 0`` keeps
+    keys less than ``window`` positions behind it."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    g = H // KV
+    qf = (q.to(torch.float32) * hd ** -0.5).reshape(B, Sq, KV, g, hd)
+    s = torch.einsum("bqkgh,bskh->bqkgs", qf, k.to(torch.float32))
+    if logit_cap:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqkgs,bskh->bqkgh", p, v.to(torch.float32))
+    return o.reshape(B, Sq, H, hd).to(q.dtype)

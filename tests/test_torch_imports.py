@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` (and ``chip_smoke.py``) import
 neither ``jax`` nor the JAX package ``repro``, proven in a fresh process
-that runs the port's main path, and by a scan of the sources."""
+that runs the port's QNN main path and one reduced LM prefill, and by a
+scan of the sources."""
 import pathlib
 import re
 import subprocess
@@ -16,7 +17,9 @@ _PROBE = """
 import sys
 import numpy as np
 import repro_torch
+import torch
 import repro_torch.core, repro_torch.kernels, repro_torch.obs
+import repro_torch.configs, repro_torch.models, repro_torch.quant
 from repro_torch.core import build_flow
 from repro_torch.core.workloads import WORKLOADS
 model = build_flow(WORKLOADS["TFC-w2a2"]()).model
@@ -24,6 +27,13 @@ compiled = model.compile(device="cpu")
 feeds = next(iter(model.sample_inputs(rng=np.random.default_rng(0))))
 out = compiled(feeds)
 assert all(np.isfinite(v).all() for v in out.values())
+from repro_torch.configs import get_config
+from repro_torch.models import get_model
+cfg = get_config("gemma2-2b", reduced=True)
+lm = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+logits = lm(torch.randint(0, cfg.vocab, (2, 40)))
+assert logits.shape == (2, 40, cfg.vocab_padded)
+assert bool(torch.isfinite(logits[..., :cfg.vocab]).all())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED=" + ",".join(bad))
