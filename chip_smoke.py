@@ -8,12 +8,15 @@ Run from the repository root, no arguments, one card:
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
 use), then runs six phases and prints one JSON object per line:
 
-  env          torch/CUDA versions, the card, the kernels' build seconds
+  env          torch/CUDA versions, the card, the kernels' build seconds,
+               the HGMMA (wgmma) instructions in the built library
   kernel_grid  every kernel against its plain PyTorch version on the card,
                over the CPU tests' shape grid and the main paths' real
                shapes; integers and the dequant epilogue must be equal,
-               flash attention within 2e-5 (float32) or one output ulp
-               (bfloat16/float16)
+               flash attention within 2e-5 (float32) or, on the
+               tensor-core kernel, one output ulp plus 2^-8 max|v|
+               (bfloat16) / 2^-10 max|v| (float16): twice the effect of
+               rounding P to 16 bits
   main_path    workload -> build_flow -> compile() -> inference for the
                four QNN workloads and for TFC/CNV at the paper's widths,
                batch 256: float64 mode bit-exact against the numpy
@@ -28,8 +31,11 @@ use), then runs six phases and prints one JSON object per line:
                the flash-attention kernel against plain attention, and
                token-by-token ``decode_step`` against ``forward``; one
                kernel launch per layer.  bfloat16 (the published dtype):
-               ms per prefill, tokens/s and peak memory at B=4, S=2048 and
-               B=1, S=32768
+               at B=1, S=2048 the logits through the kernel against a
+               float32 forward of the same weights, no further from it
+               than 1.5x the logits through the plain attention; ms per
+               prefill, tokens/s and peak memory at B=4, S=2048 and B=1,
+               S=32768
 
 then a ``{"kernels": [...]}`` line (per kernel: launches on its path,
 max abs error against the plain version, and at the main path's shape
@@ -43,9 +49,11 @@ exits with code 2 before doing anything.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -65,7 +73,7 @@ from repro_torch.core.workloads import (WORKLOADS, make_cnv,  # noqa: E402
                                         make_tfc)
 from repro_torch.kernels import _build, ops as kops          # noqa: E402
 from repro_torch.kernels.flash_attention import (            # noqa: E402
-    flash_attention_fwd)
+    flash_attention_fwd, tolerance as fa_tolerance)
 from repro_torch.kernels.ref import flash_attention_ref      # noqa: E402
 from repro_torch.models import attention as lm_attention     # noqa: E402
 from repro_torch.models import get_model                     # noqa: E402
@@ -91,6 +99,7 @@ LM_ARCH = "qwen2-1.5b"
 LM_SEED = 0
 FA_LAYER = dict(B=1, S=4096, H=12, KV=2, hd=128)
 LM_F32 = (1, 1024)                        # (B, S) of the float32 checks
+LM_BF16_CHECK = (1, 2048)                 # (B, S) of the bfloat16 check
 LM_BF16 = ((4, 2048, 3), (1, 32768, 2))   # (B, S, timed calls), bfloat16
 
 
@@ -164,15 +173,37 @@ def phase_env() -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.load()                         # builds the kernels from csrc/
+    lib = _build.load()                   # builds the kernels from csrc/
     load_s = time.perf_counter() - t0
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls must not run in TF32")
+    hgmma = sass_hgmma(lib._name)
+    check(hgmma["flash_kernel_tc"] > 0,
+          f"the 16-bit flash_attention kernel has no HGMMA: {hgmma}")
     return dict(phase="env", python=sys.version.split()[0],
                 torch=torch.__version__, cuda=torch.version.cuda,
                 device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                 kernel_build_s=round(_build.build_seconds, 2),
-                kernel_load_s=round(load_s, 2))
+                kernel_load_s=round(load_s, 2), sass_hgmma=hgmma)
+
+
+def sass_hgmma(library: str) -> dict:
+    """HGMMA (wgmma) instructions in the built library, from ``cuobjdump
+    --dump-sass``: those of the 16-bit flash_attention kernels
+    (``flash_kernel_tc``) and those of all other kernels."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", library],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = dict(flash_kernel_tc=0, other=0)
+    func = "other"
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = "flash_kernel_tc" if "flash_kernel_tc" in line \
+                else "other"
+        elif "HGMMA" in line:
+            counts[func] += 1
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -284,70 +315,77 @@ def grid_quantize(rng) -> dict:
     return dict(cases=cases, max_abs_err=worst)
 
 
-def ulp(x: torch.Tensor) -> torch.Tensor:
-    """Spacing of bfloat16 / float16 numbers at |x|."""
-    bits = {torch.bfloat16: 7, torch.float16: 10}[x.dtype]
-    e = torch.floor(torch.log2(x.double().abs().clamp_min(2.0 ** -14)))
-    return torch.exp2(e - bits)
-
-
-def flash_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+def flash_err(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor,
+              what: str) -> float:
     """Max abs error of the kernel against its plain version; raises
-    beyond 2e-5 (absolute and relative) in float32 and beyond one ulp of
-    the plain version's output in bfloat16 / float16."""
+    beyond ``flash_attention.tolerance``: 2e-5 (absolute and relative) in
+    float32; in bfloat16 / float16 one ulp of the plain version's output
+    plus twice the effect of rounding P to 16 bits (2^-8 max|v| in bf16,
+    2^-10 max|v| in f16)."""
     check(got.dtype == want.dtype and got.shape == want.shape,
           f"{what}: dtype/shape {got.dtype}{tuple(got.shape)} vs "
           f"{want.dtype}{tuple(want.shape)}")
     d = (got.double() - want.double()).abs()
-    if got.dtype == torch.float32:
-        ok = d <= 2e-5 + 2e-5 * want.double().abs()
-    else:
-        ok = d <= ulp(want)
-    check(bool(ok.all()) and bool(torch.isfinite(got).all()),
+    check(bool((d <= fa_tolerance(want, v)).all())
+          and bool(torch.isfinite(got).all()),
           f"{what}: kernel differs from its plain version (max abs err "
           f"{float(d.max())})")
     return float(d.max())
+
+
+# (name, B, Sq, Sk, H, KV, hd, keywords): each in float32, bfloat16 and
+# float16; the CPU tests' grid (the reference's own kernel test), then
+# ragged lengths, window, q_offset, cap, masked rows, non-causal, hd 16 to
+# 256, a chunked prefill
+FA_GRID = [
+    ("gqa", 2, 128, 128, 4, 2, 64, {}),
+    ("cap", 1, 256, 256, 8, 8, 64, dict(logit_cap=50.0)),
+    ("gqa3", 2, 128, 128, 6, 2, 32, {}),
+    ("ragged", 2, 100, 100, 4, 2, 32, {}),
+    ("window", 1, 300, 300, 4, 2, 16, dict(window=37)),
+    ("q_offset", 2, 24, 88, 4, 2, 40, dict(q_offset=64)),
+    ("q_offset window cap", 1, 33, 97, 4, 2, 16,
+     dict(q_offset=64, window=16, logit_cap=30.0)),
+    ("fully masked rows", 1, 16, 32, 4, 2, 16, dict(q_offset=64, window=8)),
+    ("not causal", 1, 40, 70, 2, 1, 16, dict(causal=False, window=12)),
+    ("hd 256 cap", 1, 130, 130, 8, 4, 256, dict(logit_cap=50.0)),
+    ("hd 256 window cap", 1, 700, 700, 8, 4, 256,
+     dict(window=256, logit_cap=50.0)),
+    ("hd 128", 2, 200, 200, 12, 2, 128, {}),
+    ("hd 64", 1, 150, 150, 4, 2, 64, {}),
+    ("chunked prefill", 1, 1000, 3048, 12, 2, 128, dict(q_offset=2048)),
+]
 
 
 def grid_flash_attention() -> dict:
     worst, cases = 0.0, 0
     gen = torch.Generator(device=DEV).manual_seed(0)
     L = FA_LAYER
-    grid = [  # (B, Sq, Sk, H, KV, hd, dtype, keywords)
-        # the CPU tests' grid (the reference's own kernel test)
-        (2, 128, 128, 4, 2, 64, torch.float32, {}),
-        (1, 256, 256, 8, 8, 64, torch.float32, dict(logit_cap=50.0)),
-        (2, 128, 128, 6, 2, 32, torch.float32, {}),
-        # ragged, window, q_offset, cap, masked rows, non-causal, hd 256
-        (2, 100, 100, 4, 2, 32, torch.float32, {}),
-        (1, 300, 300, 4, 2, 16, torch.float32, dict(window=37)),
-        (2, 24, 88, 4, 2, 24, torch.float32, dict(q_offset=64)),
-        (1, 33, 97, 4, 2, 16, torch.float32,
-         dict(q_offset=64, window=16, logit_cap=30.0)),
-        (1, 16, 32, 4, 2, 16, torch.float32, dict(q_offset=64, window=8)),
-        (1, 40, 70, 2, 1, 16, torch.float32, dict(causal=False, window=12)),
-        (1, 130, 130, 8, 4, 256, torch.float32, dict(logit_cap=50.0)),
-        (1, 700, 700, 8, 4, 256, torch.bfloat16,
-         dict(window=256, logit_cap=50.0)),
-        (2, 200, 200, 12, 2, 128, torch.bfloat16, {}),
-        (1, 150, 150, 4, 2, 64, torch.float16, {}),
-        # the slice's real layer shape, float32 and bfloat16
-        (L["B"], L["S"], L["S"], L["H"], L["KV"], L["hd"], torch.float32,
-         {}),
-        (L["B"], L["S"], L["S"], L["H"], L["KV"], L["hd"], torch.bfloat16,
-         {}),
-    ]
-    for B, Sq, Sk, H, KV, hd, dt, kw in grid:
+    grid = [(name, B, Sq, Sk, H, KV, hd, dt, kw)
+            for name, B, Sq, Sk, H, KV, hd, kw in FA_GRID
+            for dt in (torch.float32, torch.bfloat16, torch.float16)]
+    # the slice's real layer shape
+    grid += [("layer", L["B"], L["S"], L["S"], L["H"], L["KV"], L["hd"], dt,
+              {}) for dt in (torch.float32, torch.bfloat16, torch.float16)]
+    for name, B, Sq, Sk, H, KV, hd, dt, kw in grid:
         q = torch.randn((B, Sq, H, hd), generator=gen, device=DEV).to(dt)
         k = torch.randn((B, Sk, KV, hd), generator=gen, device=DEV).to(dt)
         v = torch.randn((B, Sk, KV, hd), generator=gen, device=DEV).to(dt)
         got = flash_attention_fwd(q, k, v, **kw)
         want = flash_attention_ref(q, k, v, **kw)
         worst = max(worst, flash_err(
-            got, want, f"flash_attention {str(dt)[6:]} B{B} Sq{Sq} Sk{Sk} "
-                       f"H{H} KV{KV} hd{hd} {kw}"))
+            got, want, v, f"flash_attention {name} {str(dt)[6:]} B{B} Sq{Sq} "
+                          f"Sk{Sk} H{H} KV{KV} hd{hd} {kw}"))
         cases += 1
         del q, k, v, got, want
+    # the tensor-core kernel refuses 16-bit rows that are not 16 bytes
+    x = torch.zeros((1, 8, 2, 12), dtype=torch.bfloat16, device=DEV)
+    try:
+        flash_attention_fwd(x, x[:, :, :1], x[:, :, :1])
+    except ValueError:
+        cases += 1
+    else:
+        check(False, "flash_attention took bf16 with hd = 12")
     return dict(cases=cases, max_abs_err=worst)
 
 
@@ -463,8 +501,9 @@ def time_flash_attention(dt) -> dict:
                      ALU_OPS_PER_S if dt == torch.float32
                      else BF16_OPS_PER_S)
     return dict(shape=f"{str(dt)[6:]} B{B} S{S} H{H} KV{KV} hd{hd} causal",
-                ms=ms, wrapper_ms=wrapper, plain_ms=plain, bound_ms=b_ms,
-                bound_by=by, library_ms=lib,
+                ms=ms, tflops=ops / ms / 1e9, wrapper_ms=wrapper,
+                plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib,
+                library_tflops=ops / lib / 1e9,
                 library="F.scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True)",
                 library_max_abs_diff=lib_diff,
@@ -723,6 +762,50 @@ def lm_float32_checks(cfg) -> dict:
                 memory_allocated_before=resident, max_memory_allocated=peak)
 
 
+def lm_bf16_accuracy(model, cfg) -> dict:
+    """bfloat16 at ``LM_BF16_CHECK``: the truth is a float32 forward of a
+    float32 copy of the bf16 model's own weights.  The bf16 logits through
+    the kernel must lie no further from it than 1.5x the bf16 logits
+    through the plain attention (which rounds nothing inside attention):
+    the kernel's rounding of P may add to the error of a bf16 forward, but
+    must not dominate it."""
+    B, S = LM_BF16_CHECK
+    toks = lm_tokens(cfg, B, S)
+    V = cfg.vocab
+    ref = get_model(dataclasses.replace(cfg, dtype=torch.float32))
+    ref.params = copy.deepcopy(model.params).to(torch.float32)
+    truth = ref(toks)[..., :V]
+    del ref
+    before = _build.LAUNCH_COUNTS["flash_attention"]
+    got = model(toks)[..., :V]
+    launches = _build.LAUNCH_COUNTS["flash_attention"] - before
+    check(launches == cfg.n_layers,
+          f"bf16 B={B} S={S}: {launches} flash_attention launches, not "
+          f"{cfg.n_layers}")
+    with plain_attention():
+        plain = model(toks)[..., :V]
+    scale = float(truth.abs().max())
+
+    def dist(x):
+        d = x.float() - truth
+        return float(d.abs().max()) / scale, \
+            float(d.square().mean().sqrt()) / scale
+    kernel_max, kernel_rms = dist(got)
+    plain_max, plain_rms = dist(plain)
+    check(bool(torch.isfinite(got).all()), "bf16 logits are not finite")
+    check(kernel_max <= 1.5 * plain_max,
+          f"bf16 logits through the kernel {kernel_max} of the logit scale "
+          f"from the float32 truth, > 1.5 x the plain attention's "
+          f"{plain_max}")
+    del truth, got, plain
+    torch.cuda.empty_cache()
+    return dict(dtype="bfloat16", B=B, S=S, check="vs float32 forward of "
+                "the same weights", logit_scale=scale,
+                kernel_max_rel_err=kernel_max, plain_max_rel_err=plain_max,
+                kernel_rms_rel_err=kernel_rms, plain_rms_rel_err=plain_rms,
+                launches_per_forward=launches)
+
+
 def lm_bf16_run(model, cfg, B, S, reps) -> dict:
     toks = lm_tokens(cfg, B, S)
     resident = torch.cuda.memory_allocated()
@@ -760,6 +843,7 @@ def phase_lm_prefill() -> dict:
           f"{LM_ARCH} is not at its published width")
     runs = [lm_float32_checks(cfg)]
     model = lm_model(cfg)
+    runs.append(lm_bf16_accuracy(model, cfg))
     runs += [lm_bf16_run(model, cfg, B, S, reps) for B, S, reps in LM_BF16]
     del model
     torch.cuda.empty_cache()
