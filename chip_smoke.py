@@ -9,10 +9,14 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
 use), then runs six phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds,
-               the HGMMA (wgmma) instructions in the built library
+               the HGMMA (16-bit wgmma) instructions of flash_attention
+               and the IGMMA (int8 wgmma) instructions of int_matmul in
+               the built library
   kernel_grid  every kernel against its plain PyTorch version on the card,
                over the CPU tests' shape grid and the main paths' real
-               shapes; integers and the dequant epilogue must be equal,
+               shapes, int_matmul on both of its routes over an edge grid
+               of K, N and M; integers and the dequant epilogue must be
+               equal,
                flash attention within 2e-5 (float32) or, on the
                tensor-core kernel, one output ulp plus 2^-8 max|v|
                (bfloat16) / 2^-10 max|v| (float16): twice the effect of
@@ -21,11 +25,15 @@ use), then runs six phases and prints one JSON object per line:
                four QNN workloads and for TFC/CNV at the paper's widths,
                batch 256: float64 mode bit-exact against the numpy
                interpreter, float32 mode (fused epilogues) to 1e-5; ms per
-               batch, and ms per op type from one ``profile()`` call
+               batch, ms per op type from one ``profile()`` call, the
+               int_matmul launches by route and the calls' shapes
   no_fallback  the launch counts of one inference equal what the plan says
                (so no route ran a plain version instead of its kernel)
   kernel_times each kernel's device time, wrapper, plain version, bound
-               and library call at the main paths' shapes
+               and library call at the main paths' shapes; int_matmul on
+               both routes at every call of CNV(64,32) and TFC(784), both
+               routes' device time at the other configurations' calls,
+               and the tensor-core kernel's ring depth swept
   lm_prefill   the LM slice: qwen2-1.5b at full width (28 layers) with
                seeded random weights.  float32, B=1, S=1024: logits with
                the flash-attention kernel against plain attention, and
@@ -72,6 +80,9 @@ from repro_torch.core import build_flow                      # noqa: E402
 from repro_torch.core.workloads import (WORKLOADS, make_cnv,  # noqa: E402
                                         make_tfc)
 from repro_torch.kernels import _build, ops as kops          # noqa: E402
+from repro_torch.kernels.int_matmul import (                 # noqa: E402
+    CUDA_CORES, ROUTES, TENSOR_CORES, int_matmul as int_matmul_kernel,
+    k_major, route_for)
 from repro_torch.kernels.flash_attention import (            # noqa: E402
     flash_attention_fwd, tolerance as fa_tolerance)
 from repro_torch.kernels.ref import flash_attention_ref      # noqa: E402
@@ -177,32 +188,48 @@ def phase_env() -> dict:
     load_s = time.perf_counter() - t0
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls must not run in TF32")
-    hgmma = sass_hgmma(lib._name)
-    check(hgmma["flash_kernel_tc"] > 0,
-          f"the 16-bit flash_attention kernel has no HGMMA: {hgmma}")
+    sass = sass_mma(lib._name)
+    check(sass["hgmma"]["flash_kernel_tc"] > 0,
+          f"the 16-bit flash_attention kernel has no HGMMA: {sass}")
+    check(sass["igmma"]["int8_matmul_tc"] > 0,
+          f"the int8 int_matmul kernel has no IGMMA: {sass}")
     return dict(phase="env", python=sys.version.split()[0],
                 torch=torch.__version__, cuda=torch.version.cuda,
                 device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                 kernel_build_s=round(_build.build_seconds, 2),
-                kernel_load_s=round(load_s, 2), sass_hgmma=hgmma)
+                kernel_load_s=round(load_s, 2), sass_hgmma=sass["hgmma"],
+                sass_igmma=sass["igmma"], sass_gmma_opcodes=sass["opcodes"])
 
 
-def sass_hgmma(library: str) -> dict:
-    """HGMMA (wgmma) instructions in the built library, from ``cuobjdump
-    --dump-sass``: those of the 16-bit flash_attention kernels
-    (``flash_kernel_tc``) and those of all other kernels."""
+def sass_mma(library: str) -> dict:
+    """Warpgroup MMA instructions in the built library, from ``cuobjdump
+    --dump-sass``: HGMMA (16-bit wgmma) in the flash_attention kernels
+    (``flash_kernel_tc``) and elsewhere, IGMMA (integer wgmma) in the
+    int8 int_matmul kernels (``int8_matmul_tc``) and elsewhere, and every
+    distinct opcode that ends in GMMA."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", library],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    counts = dict(flash_kernel_tc=0, other=0)
-    func = "other"
+    counts = dict(hgmma=dict(flash_kernel_tc=0, other=0),
+                  igmma=dict(int8_matmul_tc=0, other=0), opcodes=set())
+    func = ""
     for line in sass.splitlines():
         if "Function :" in line:
-            func = "flash_kernel_tc" if "flash_kernel_tc" in line \
-                else "other"
-        elif "HGMMA" in line:
-            counts[func] += 1
+            func = line
+            continue
+        for word in line.replace(";", " ").split():
+            op = word.split(".")[0]
+            if op.endswith("GMMA"):
+                counts["opcodes"].add(op)
+                if op == "HGMMA":
+                    counts["hgmma"]["flash_kernel_tc" if "flash_kernel_tc"
+                                    in func else "other"] += 1
+                elif op == "IGMMA":
+                    counts["igmma"]["int8_matmul_tc" if "int8_matmul_tc"
+                                    in func else "other"] += 1
+                break
+    counts["opcodes"] = sorted(counts["opcodes"])
     return counts
 
 
@@ -210,16 +237,31 @@ def sass_hgmma(library: str) -> dict:
 # phase: kernel_grid — each kernel against its plain version, on the card
 # --------------------------------------------------------------------------
 
+# the int8 edge grid of both int_matmul routes: every K, N and M crossed
+IM_GRID_K = (8, 9, 16, 27, 32, 33, 49, 144, 576, 2304)
+IM_GRID_N = (1, 8, 10, 16, 64, 256, 257)
+IM_GRID_M = (1, 63, 65, 129, 4096)
+
+
 def grid_int_matmul(rng) -> dict:
     worst, cases = 0.0, 0
+    by_route = {r: 0 for r in ROUTES}
 
-    def one(x, w, what, **kw):
+    def one(x, w, what, route=None, **kw):
         nonlocal worst, cases
-        got = kops.int_matmul(x, w, use_kernel=True, **kw)
+        got = kops.int_matmul(x, w, use_kernel=True, route=route, **kw)
         want = kops.int_matmul(x, w, use_kernel=False, **kw)
-        worst = max(worst, max_abs_err(got, want, f"int_matmul {what}"))
+        worst = max(worst, max_abs_err(
+            got, want, f"int_matmul {what} route={route} {kw}"))
         cases += 1
+        if route is not None:
+            by_route[route] += 1
 
+    def both(x, w, what, **kw):
+        for route in ROUTES:
+            one(x, w, what, route, **kw)
+
+    # the CPU tests' shapes on the automatic route, int8 and int32
     shapes = [(128, 128, 128), (1, 49, 10), (7, 3, 5), (130, 200, 10),
               (8, 64, 100), (300, 9, 1), (256, 64, 10)]
     for dt in (np.int8, np.int32):
@@ -229,30 +271,82 @@ def grid_int_matmul(rng) -> dict:
             s = dev(rng.uniform(0.01, 0.1, n).astype(np.float32))
             b = dev(rng.normal(size=n).astype(np.float32))
             tag = f"{np.dtype(dt).name} {m}x{k}x{n}"
-            one(x, w, tag + " wide")
-            one(x, w, tag + " narrow", acc_bits=12)
-            one(x, w, tag + " narrow->i32", acc_bits=12,
+            run = both if dt == np.int8 else one
+            run(x, w, tag + " wide")
+            run(x, w, tag + " narrow", acc_bits=12)
+            run(x, w, tag + " narrow->i32", acc_bits=12,
                 out_dtype=torch.int32)
-            one(x, w, tag + " dequant", scale=s, bias=b)
-            one(x, w, tag + " dequant no bias", scale=s, acc_bits=12)
-            one(x, w, tag + " scalar scale", scale=s[:1])
+            run(x, w, tag + " dequant", scale=s, bias=b)
+            run(x, w, tag + " dequant no bias", scale=s, acc_bits=12)
+            run(x, w, tag + " scalar scale", scale=s[:1])
         # an accumulator that overflows int16: the wrap must match
         x = dev(rng.integers(-100, 101, (128, 128)).astype(dt))
         w = dev(rng.integers(-100, 101, (128, 128)).astype(dt))
-        one(x, w, f"{np.dtype(dt).name} int16 overflow", acc_bits=12)
+        (both if dt == np.int8 else one)(
+            x, w, f"{np.dtype(dt).name} int16 overflow", acc_bits=12)
     # int32 products that wrap modulo 2^32
     x = dev(rng.integers(-2 ** 20, 2 ** 20, (9, 33)).astype(np.int32))
     w = dev(rng.integers(-2 ** 20, 2 ** 20, (33, 6)).astype(np.int32))
     one(x, w, "int32 wrap")
-    # the main path's real shapes: CNV conv (int8, 16-bit accumulator) and
-    # the dense 784 -> 64 layer with int32 operands
+    # the int8 edge grid, both routes, both weight layouts (row-major
+    # (K, N) and the K-major view the lowering stores) and five output
+    # forms in turn
+    forms = [dict(), dict(acc_bits=12), dict(acc_bits=13,
+                                               out_dtype=torch.int32),
+             dict(scale=True, bias=True), dict(scale=True, acc_bits=12)]
+    i = 0
+    for k in IM_GRID_K:
+        for n in IM_GRID_N:
+            w = dev(rng.integers(-8, 8, (k, n)).astype(np.int8))
+            s = dev(rng.uniform(0.01, 0.1, n).astype(np.float32))
+            b = dev(rng.normal(size=n).astype(np.float32))
+            for m in IM_GRID_M:
+                x = dev(rng.integers(-128, 128, (m, k)).astype(np.int8))
+                kw = dict(forms[i % len(forms)])
+                if "scale" in kw:
+                    kw["scale"] = s
+                if "bias" in kw:
+                    kw["bias"] = b
+                wl = k_major(w) if i % 2 else w
+                both(x, wl, f"{m}x{k}x{n} "
+                            f"{'K-major' if i % 2 else 'row-major'} w", **kw)
+                i += 1
+    # an int16 overflow in narrow mode at a main-path depth
+    x = dev(rng.integers(-128, 128, (1000, 576)).astype(np.int8))
+    w = dev(rng.integers(-128, 128, (576, 64)).astype(np.int8))
+    both(x, w, "int16 overflow 1000x576x64", acc_bits=15)
+    both(x, w, "int16 overflow to int32", acc_bits=15, out_dtype=torch.int32)
+    # x a view at an odd byte offset (no TMA: the producer loads it), and
+    # a view whose rows are wider than K
+    for k in (64, 27):
+        flat = dev(rng.integers(-128, 128, 300 * k + 1).astype(np.int8))
+        x = flat[1:].view(300, k)
+        w = dev(rng.integers(-8, 8, (k, 24)).astype(np.int8))
+        both(x, w, f"odd offset 300x{k}x24", acc_bits=14)
+        wide = dev(rng.integers(-128, 128, (300, k + 16)).astype(np.int8))
+        both(wide[:, 16:], w, f"row pitch {k + 16} 300x{k}x24")
+    # a forced tensor-core launch it cannot take raises, nothing runs
+    xi = dev(rng.integers(-8, 8, (64, 64)).astype(np.int32))
+    before = dict(_build.LAUNCH_COUNTS)
+    try:
+        kops.int_matmul(xi, xi, use_kernel=True, route=TENSOR_CORES)
+    except ValueError:
+        cases += 1
+    else:
+        check(False, "the tensor-core int_matmul took int32 operands")
+    check(dict(_build.LAUNCH_COUNTS) == before,
+          "a refused tensor-core int_matmul launched a kernel")
+    # the main path's largest call (CNV(64,32) 2nd conv, int8, 12-bit
+    # accumulator to int32) and the dense 784 -> 64 layer in int32
     x = dev(rng.integers(-2, 2, (BATCH * 32 * 32, 576)).astype(np.int8))
     w = dev(rng.integers(-2, 2, (576, 64)).astype(np.int8))
-    one(x, w, "int8 262144x576x64", acc_bits=12, out_dtype=torch.int32)
+    both(x, k_major(w), "int8 262144x576x64", acc_bits=12,
+         out_dtype=torch.int32)
     x = dev(rng.integers(0, 256, (BATCH, 784)).astype(np.int32))
     w = dev(rng.integers(-2, 2, (784, 64)).astype(np.int32))
     one(x, w, "int32 256x784x64", acc_bits=20, out_dtype=torch.int32)
-    return dict(cases=cases, max_abs_err=worst)
+    return dict(cases=cases, cases_by_forced_route=by_route,
+                max_abs_err=worst)
 
 
 def grid_multithreshold(rng) -> dict:
@@ -404,25 +498,80 @@ def phase_kernel_grid() -> dict:
 # kernel times at the main path's shapes
 # --------------------------------------------------------------------------
 
-def time_int_matmul(rng, m, k, n, dt, acc_bits, with_library) -> dict:
+def time_int_matmul(rng, m, k, n, dt, acc_bits, fused, per_batch=None
+                    ) -> dict:
+    """Both routes at one shape (int32 operands: the CUDA cores only), the
+    weight K-major as the lowering stores it; the automatic route's time
+    is ``ms``.  ``torch._int_mm`` where it takes the shape (int8, K and N
+    multiples of 8, M > 16)."""
+    tdt = torch.int8 if dt == np.int8 else torch.int32
     x = dev(rng.integers(-2, 2, (m, k)).astype(dt))
-    w = dev(rng.integers(-2, 2, (k, n)).astype(dt))
-    kw = dict(acc_bits=acc_bits, out_dtype=torch.int32)
-    def kernel():
-        return kops.int_matmul(x, w, use_kernel=True, **kw)
-    wrapper = time_ms(kernel, 10)
-    ms = device_ms(kernel, GRAPH_LAUNCHES)
-    plain = time_ms(lambda: kops.int_matmul(x, w, use_kernel=False, **kw),
-                    3, warmup=1)
+    w_rm = dev(rng.integers(-2, 2, (k, n)).astype(dt))
+    w = k_major(w_rm) if tdt == torch.int8 else w_rm
+    s = dev(rng.uniform(0.01, 0.1, n).astype(np.float32)) if fused else None
+    b = dev(rng.normal(size=n).astype(np.float32)) if fused else None
+    kw = dict(acc_bits=acc_bits,
+              out_dtype=torch.float32 if fused else torch.int32)
+    routes = ROUTES if tdt == torch.int8 else (CUDA_CORES,)
+    auto = route_for(m, k, n, tdt)
+    per_route = {}
+    for r in routes:
+        def kernel(r=r):
+            return kops.int_matmul(x, w, s, b, use_kernel=True, route=r,
+                                   **kw)
+        per_route[r] = dict(ms=device_ms(kernel, GRAPH_LAUNCHES),
+                            wrapper_ms=time_ms(kernel, 10))
+    plain = time_ms(lambda: kops.int_matmul(x, w, s, b, use_kernel=False,
+                                            **kw), 3, warmup=1)
     size = np.dtype(dt).itemsize
-    b_ms, by = bound(m * k * size + k * n * size + m * n * 4, 2.0 * m * k * n,
+    b_ms, by = bound(m * k * size + k * n * size + m * n * 4
+                     + (8 * n if fused else 0), 2.0 * m * k * n,
                      INT8_OPS_PER_S if size == 1 else ALU_OPS_PER_S)
     lib = None
-    if with_library:      # timed here only; the port never calls it
-        lib = time_ms(lambda: torch._int_mm(x, w), 10)
-    return dict(shape=f"{np.dtype(dt).name} {m}x{k}x{n} acc{acc_bits}",
-                ms=ms, wrapper_ms=wrapper, plain_ms=plain, bound_ms=b_ms, bound_by=by,
-                library_ms=lib)
+    if tdt == torch.int8 and k % 8 == 0 and n % 8 == 0 and m > 16:
+        # timed here only; the port never calls it
+        lib = time_ms(lambda: torch._int_mm(x, w_rm), 10)
+    return dict(shape=f"{np.dtype(dt).name} {m}x{k}x{n} acc{acc_bits}"
+                      f"{' fused' if fused else ''}",
+                route=auto, ms=per_route[auto]["ms"],
+                wrapper_ms=per_route[auto]["wrapper_ms"], plain_ms=plain,
+                bound_ms=b_ms, bound_by=by, library_ms=lib,
+                launches_per_batch=per_batch, **per_route)
+
+
+def route_table(rng, calls) -> list:
+    """Device ms of both int_matmul routes at each distinct int8 call of
+    a configuration (what ``route_for`` is chosen from)."""
+    rows = []
+    for m, k, n, dt, acc_bits, fused, count in calls:
+        if dt != "int8":
+            continue
+        x = dev(rng.integers(-2, 2, (m, k)).astype(np.int8))
+        w = k_major(dev(rng.integers(-2, 2, (k, n)).astype(np.int8)))
+        s = dev(np.full(n, 0.05, np.float32)) if fused else None
+        kw = dict(acc_bits=acc_bits,
+                  out_dtype=torch.float32 if fused else torch.int32)
+        row = dict(shape=f"{m}x{k}x{n}", calls=count,
+                   route=route_for(m, k, n, torch.int8))
+        for r in ROUTES:
+            row[r] = device_ms(
+                lambda r=r: kops.int_matmul(x, w, s, use_kernel=True,
+                                            route=r, **kw), GRAPH_LAUNCHES)
+        rows.append(row)
+    return rows
+
+
+def stage_sweep(rng, m, k, n, stages) -> dict:
+    """Device ms of the tensor-core kernel at each ring depth."""
+    x = dev(rng.integers(-2, 2, (m, k)).astype(np.int8))
+    w = k_major(dev(rng.integers(-2, 2, (k, n)).astype(np.int8)))
+    ms = {}
+    for st in stages:
+        ms[st] = device_ms(
+            lambda st=st: int_matmul_kernel(
+                x, w, acc_bits=12, out_dtype=torch.int32,
+                route=TENSOR_CORES, stages=st), GRAPH_LAUNCHES)
+    return dict(shape=f"{m}x{k}x{n}", ms_by_stages=ms)
 
 
 def time_multithreshold(rng, m, c, n, dt) -> dict:
@@ -512,12 +661,25 @@ def time_flash_attention(dt) -> dict:
                 "float32 has no tensor-core path)")
 
 
-def phase_kernel_times() -> dict:
+def phase_kernel_times(configs) -> dict:
     """The first entry of each list is the shape the ``kernels`` line
     reports: the largest call of CNV-w2a2 (ch=64, img=32) at batch 256,
-    and for flash attention one bfloat16 layer of qwen2-1.5b at S=4096."""
+    and for flash attention one bfloat16 layer of qwen2-1.5b at S=4096.
+    ``int_matmul`` has one row per distinct call of CNV(64,32) and
+    TFC(784) at batch 256 (as recorded in ``main_path``), then the int32
+    route; ``int_matmul_routes`` both routes at every distinct int8 call
+    of the other configurations."""
     rng = np.random.default_rng(1)
     hw = BATCH * 32 * 32
+    calls = {r["name"]: r["int_matmul_calls"] for r in configs}
+    wide = calls[IM_TIMED[0]] + calls[IM_TIMED[1]]
+    first = [c for c in wide if c[:3] == [hw, 576, 64]]
+    check(len(first) == 1, f"CNV(64,32) has no single {hw}x576x64 call")
+    rows = [time_int_matmul(rng, m, k, n, np.dtype(dt).type, acc, fused,
+                            count)
+            for m, k, n, dt, acc, fused, count in first + [
+                c for c in wide if c not in first]]
+    rows.append(time_int_matmul(rng, BATCH, 784, 64, np.int32, 20, False))
     return dict(
         phase="kernel_times",
         note="ms: device time per launch, from replays of a CUDA graph of "
@@ -525,14 +687,13 @@ def phase_kernel_times() -> dict:
              "library_ms: per eager call by CUDA events after warm-up, "
              "host time included; inputs above the L2 size are cold by "
              "their size, smaller ones are warm",
-        int_matmul=[
-            time_int_matmul(rng, hw, 576, 64, np.int8, 12, True),
-            time_int_matmul(rng, hw, 27, 64, np.int8, 12, False),
-            time_int_matmul(rng, hw // 16, 2304, 256, np.int8, 12, True),
-            time_int_matmul(rng, BATCH, 784, 64, np.int8, 15, True),
-            time_int_matmul(rng, BATCH, 784, 64, np.int32, 20, False),
-            time_int_matmul(rng, BATCH * 16 * 16, 9, 1, np.int8, 10, False),
-        ],
+        int_matmul=rows,
+        int_matmul_routes={name: route_table(rng, c)
+                           for name, c in calls.items()
+                           if name not in IM_TIMED},
+        int_matmul_stages=[stage_sweep(rng, hw, 576, 64, range(2, 9)),
+                           stage_sweep(rng, hw // 16, 2304, 256,
+                                       range(2, 5))],
         multithreshold=[
             time_multithreshold(rng, hw, 64, 3, np.int32),
             time_multithreshold(rng, hw, 64, 15, np.int32),
@@ -559,6 +720,26 @@ CONFIGS = [(name, fn, {}) for name, fn in WORKLOADS.items()] + [
     ("CNV-w2a2(ch=64,img=32)", make_cnv, dict(ch=64, img=32)),
     ("TFC-w2a2(in_dim=784)", make_tfc, dict(in_dim=784)),
 ]
+# the configurations whose int_matmul calls kernel_times times in full
+IM_TIMED = ("CNV-w2a2(ch=64,img=32)", "TFC-w2a2(in_dim=784)")
+
+
+@contextlib.contextmanager
+def record_int_matmul(calls: list):
+    """Record (M, K, N, operand dtype, acc_bits, fused) of every
+    ``int_matmul`` call the lowered model makes."""
+    kernel = kops.int_matmul
+
+    def recorder(x, w, scale=None, bias=None, **kw):
+        calls.append((int(x.shape[0]), int(x.shape[1]), int(w.shape[1]),
+                      str(x.dtype)[6:], int(kw.get("acc_bits", 32)),
+                      scale is not None))
+        return kernel(x, w, scale, bias, **kw)
+    kops.int_matmul = recorder
+    try:
+        yield
+    finally:
+        kops.int_matmul = kernel
 
 
 def feeds_for(model, batch: int, seed: int) -> dict:
@@ -634,10 +815,17 @@ def run_config(name, factory, kwargs) -> dict:
     feeds = feeds_for(model, BATCH, seed=1)
     (inp,) = model.graph.inputs
     before = dict(_build.LAUNCH_COUNTS)
-    out = fast(feeds)
-    launched = {k: v - before.get(k, 0)
-                for k, v in _build.LAUNCH_COUNTS.items()}
+    calls: list = []
+    with record_int_matmul(calls):
+        out = fast(feeds)
+    moved = {k: v - before.get(k, 0)
+             for k, v in _build.LAUNCH_COUNTS.items()}
     expect = expected_launches(model, fast)
+    launched = {k: moved.get(k, 0) for k in expect}
+    by_route = {r: moved.get(f"int_matmul:{r}", 0) for r in ROUTES}
+    check(sum(by_route.values()) == launched["int_matmul"],
+          f"{name}: int_matmul launches by route {by_route} do not add up "
+          f"to {launched['int_matmul']}")
     ref = model.execute({inp: feeds[inp][:4]})
     for o in model.graph.outputs:
         check(out[o].shape[0] == BATCH and out[o].dtype == np.float32
@@ -654,7 +842,10 @@ def run_config(name, factory, kwargs) -> dict:
     for _ in range(reps):
         fast(feeds)                      # returns numpy: ends synchronised
     ms = (time.perf_counter() - t0) / reps * 1e3
+    distinct = sorted(set(calls), key=calls.index)
     return dict(
+        int_matmul_calls=[list(c) + [calls.count(c)] for c in distinct],
+        int_matmul_launches_by_route=by_route,
         step_ms_by_op=profile_by_op(fast, feeds),
         name=name, flow_s=round(flow_s, 3), nodes=len(model.graph.nodes),
         kernel_calls=fast.kernel_calls,
@@ -675,7 +866,12 @@ def phase_main_path() -> dict:
              for k in ("int_matmul", "multithreshold", "quantize")}
     for k, v in total.items():
         check(v > 0, f"the main path never launched kernel {k}")
-    return dict(phase="main_path", configs=results, launches=total)
+    by_route = {r: _build.LAUNCH_COUNTS.get(f"int_matmul:{r}", 0)
+                for r in ROUTES}
+    check(by_route[TENSOR_CORES] > 0,
+          "the main path never launched the tensor-core int_matmul")
+    return dict(phase="main_path", configs=results, launches=total,
+                int_matmul_launches_by_route=by_route)
 
 
 def phase_no_fallback(results) -> dict:
@@ -881,7 +1077,7 @@ def main() -> None:
     main_path = phase_main_path()
     emit(main_path)
     emit(phase_no_fallback(main_path["configs"]))
-    times = phase_kernel_times()
+    times = phase_kernel_times(main_path["configs"])
     emit(times)
     lm = phase_lm_prefill()           # last: it holds the card's memory
     emit(lm)

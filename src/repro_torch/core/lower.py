@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
+from ..kernels.int_matmul import k_major
 from ..obs.trace import get_tracer
 from .graph import Graph, Node, quant_bounds
 from .intervals import ScaledIntRange
@@ -140,6 +141,15 @@ class _Lowerer:
         (converted by numpy first, so the value is numpy's)."""
         return torch.tensor(np.asarray(a, _NP_DTYPE[dtype]),
                             device=self.device)
+
+    def _weight(self, w, dtype) -> torch.Tensor:
+        """A (K, N) integer weight of ``int_matmul`` on the device, stored
+        once: int8 K-major (an (N, K) matrix, rows padded to 16 bytes,
+        seen as (K, N)), the layout the tensor-core kernel reads, so no
+        call copies it; int32 as it is (the CUDA-core kernel takes any
+        strides)."""
+        t = self._dev(w, dtype)
+        return k_major(t) if dtype == torch.int8 else t
 
     def _const(self, name: str, as_int: bool = False) -> torch.Tensor:
         """Constant as a dtype-converted tensor on the device, uploaded
@@ -342,7 +352,7 @@ class _Lowerer:
         acc_bits = self._acc_bits(out)
         in8 = self._fits(a_t, -128, 127) and self._fits(b_t, -128, 127)
         in_dtype = torch.int8 if in8 else INT_DTYPE
-        wq = self._dev(w, in_dtype)
+        wq = self._weight(w, in_dtype)
         K = int(w.shape[0])
         fused = self.fuse_epilogue and self._epilogue_chain(node)
         kargs = self._kargs()
@@ -472,7 +482,8 @@ class _Lowerer:
             in_dtype = torch.int8 if in8 else INT_DTYPE
         else:
             in_dtype = dtype
-        wmats = [self._dev(
+        to_dev = self._weight if int_ok else self._dev
+        wmats = [to_dev(
             w[g * og:(g + 1) * og].reshape(og, cin_g * kh * kw).T,
             in_dtype) for g in range(groups)]
         sgs = bgs = [None] * groups

@@ -5,9 +5,10 @@ The sources have a plain C interface (raw pointers, sizes, the stream; no
 PyTorch header), so ``nvcc`` compiles each in seconds.  One ``nvcc -c``
 process per source runs at the same time, one link makes the shared
 library, ``ctypes`` loads it.  The library's file name carries a hash of
-the sources and flags, so an unchanged tree reuses its build and a changed
-source never loads a stale one.  A build failure raises with the
-compiler's output; nothing falls back to the plain versions.
+the sources, the headers they include and the flags, so an unchanged tree
+reuses its build and a changed source or header never loads a stale one.
+A build failure raises with the compiler's output; nothing falls back to
+the plain versions.
 """
 from __future__ import annotations
 
@@ -24,6 +25,9 @@ from typing import Dict, List, Optional
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("int_matmul.cu", "multithreshold.cu", "quantize.cu",
            "flash_attention.cu")
+#: headers the sources include: part of the build's hash, so an edit to
+#: one rebuilds the library
+HEADERS = ("hopper.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -62,7 +66,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return h.hexdigest()[:16]
@@ -105,7 +109,8 @@ def _build(out: pathlib.Path) -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_float)
-    lib.sira_int_matmul.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, i, p]
+    lib.sira_int_matmul.argtypes = [p, p, p, p, p, ll, ll, ll, ll, ll, ll,
+                                    i, i, i, i, i, p]
     lib.sira_int_matmul.restype = i
     lib.sira_multithreshold.argtypes = [p, p, p, ll, ll, i, i, i, i, p]
     lib.sira_multithreshold.restype = i

@@ -88,6 +88,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -367,6 +369,8 @@ cudaError_t by_width(const void* q, const void* k, const void* v, void* out,
 // ---------------------------------------------------------------------------
 namespace tc {
 
+using namespace sira::hopper;
+
 constexpr int BQ = 128;         // query rows per block: 2 warpgroups x 64
 constexpr int THREADS = 384;    // 2 consumer + 1 producer warpgroup
 constexpr int STAGES = 2;       // K/V ring depth
@@ -387,77 +391,6 @@ struct Cfg {
     static constexpr size_t smem =
         1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-                 :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-                 :: "r"(bar) : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    asm volatile(
-        "{\n"
-        ".reg .pred P1;\n"
-        "LAB_WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-        "@P1 bra DONE;\n"
-        "bra LAB_WAIT;\n"
-        "DONE:\n"
-        "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-// one box of a 4-D tensor map into shared memory; completes on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2, int c3) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
-        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-           "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading byte offset (K-major: unused, 16; MN-major: the stride
-// between 64-column chunks), stride byte offset 1024 (8 rows of 128 B)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
-                                               uint32_t lbo) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4) |
-           ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
-           (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keeps the compiler from touching accumulator registers across the
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
 
 __device__ __forceinline__ float ex2(float x) {
     float y;
@@ -848,35 +781,6 @@ flash_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
                 }
         }
     }
-}
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-cudaError_t encoder(EncodeTiled* fn) {
-    static EncodeTiled cached = nullptr;
-    if (!cached) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        cudaError_t err = cudaGetDriverEntryPoint(
-            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        if (err != cudaSuccess) return err;
-        if (found != cudaDriverEntryPointSuccess || !p)
-            return cudaErrorSymbolNotFound;
-        cached = (EncodeTiled)p;
-    }
-    *fn = cached;
-    return cudaSuccess;
 }
 
 template <typename T>

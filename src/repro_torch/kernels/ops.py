@@ -37,13 +37,16 @@ def _per_channel(v, n: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def int_matmul(x, w, scale=None, bias=None, *, acc_bits: int = 32,
-               out_dtype=None, use_kernel: Optional[bool] = None):
+               out_dtype=None, use_kernel: Optional[bool] = None,
+               route: Optional[str] = None):
+    """``route`` (internal: tests and measurements) forces one of the two
+    CUDA kernels; see ``kernels/int_matmul.py``."""
     if _wants_kernel(use_kernel, x, "int_matmul"):
         N = w.shape[1]
         sp = None if scale is None else _per_channel(scale, N, x)
         bp = None if bias is None else _per_channel(bias, N, x)
         return _int_matmul_kernel(x, w, sp, bp, acc_bits=acc_bits,
-                                  out_dtype=out_dtype)
+                                  out_dtype=out_dtype, route=route)
     return ref.int_matmul_ref(x, w, scale, bias, acc_bits=acc_bits,
                               out_dtype=out_dtype)
 

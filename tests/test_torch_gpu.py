@@ -21,6 +21,7 @@ from repro_torch.core.workloads import WORKLOADS
 from repro_torch.kernels import _build, ops as kops
 from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                  tolerance)
+from repro_torch.kernels.int_matmul import ROUTES, TENSOR_CORES, k_major
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import attention as attn_mod, get_model
 
@@ -70,6 +71,100 @@ def test_cuda_kernel_equals_plain_version(kernel):
             got = kops.quantize(x, s, z, use_kernel=True)
             assert torch.equal(got, kops.quantize(x, s, z,
                                                   use_kernel=False))
+
+
+# the main path's edge shapes: K not a multiple of 16 (no TMA for x), N
+# below or off wgmma's multiple of 8 and past one 256-column tile, M
+# around the 64/128-row tiles
+EDGE_K = (8, 9, 16, 27, 32, 33, 49, 144, 576, 2304)
+EDGE_N = (1, 8, 10, 16, 64, 256, 257)
+EDGE_M = (1, 63, 65, 129, 1000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("k", EDGE_K)
+def test_int_matmul_route_equals_plain_version_on_edge_shapes(k, route):
+    """Each route, forced, over every N and M of the edge grid: wide,
+    narrow (int16 wrap, to int16 and to int32) and the dequant epilogue
+    with and without a bias, the weight row-major and K-major in turns;
+    0 differing elements."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    rng = np.random.default_rng(k)
+    dev = torch.device("cuda")
+    forms = [dict(), dict(acc_bits=12), dict(acc_bits=13,
+                                               out_dtype=torch.int32),
+             dict(scale=True, bias=True), dict(scale=True, acc_bits=12)]
+    i = 0
+    for n in EDGE_N:
+        w = _t(rng.integers(-8, 8, (k, n)).astype(np.int8)).to(dev)
+        s = _t(rng.uniform(.01, .1, n).astype(np.float32)).to(dev)
+        for m in EDGE_M:
+            x = _t(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(dev)
+            kw = dict(forms[i % len(forms)])
+            if "scale" in kw:
+                kw["scale"] = s
+            if "bias" in kw:
+                kw["bias"] = -s
+            wl = k_major(w) if i % 2 else w
+            _build.reset_launch_counts()
+            got = kops.int_matmul(x, wl, use_kernel=True, route=route, **kw)
+            assert _build.LAUNCH_COUNTS[f"int_matmul:{route}"] == 1
+            want = kops.int_matmul(x, w, use_kernel=False, **kw)
+            assert got.dtype == want.dtype and torch.equal(got, want), \
+                (m, k, n, kw)
+            i += 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_int_matmul_route_takes_views_and_wraps_like_int16(route):
+    """x at an odd byte offset and with rows wider than K, an int16
+    overflow in narrow mode: each route equals the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    for k in (64, 27):
+        w = _t(rng.integers(-8, 8, (k, 24)).astype(np.int8)).to(dev)
+        flat = _t(rng.integers(-128, 128, 300 * k + 1).astype(np.int8)
+                  ).to(dev)
+        wide = _t(rng.integers(-128, 128, (300, k + 16)).astype(np.int8)
+                  ).to(dev)
+        for x in (flat[1:].view(300, k), wide[:, 16:]):
+            got = kops.int_matmul(x, w, use_kernel=True, route=route,
+                                  acc_bits=14)
+            assert torch.equal(got, kops.int_matmul(
+                x, w, use_kernel=False, acc_bits=14))
+    x = _t(rng.integers(-128, 128, (200, 576)).astype(np.int8)).to(dev)
+    w = _t(rng.integers(-128, 128, (576, 64)).astype(np.int8)).to(dev)
+    for out_dtype in (None, torch.int32):
+        got = kops.int_matmul(x, w, use_kernel=True, route=route,
+                              acc_bits=15, out_dtype=out_dtype)
+        want = kops.int_matmul(x, w, use_kernel=False, acc_bits=15,
+                               out_dtype=out_dtype)
+        assert torch.equal(got, want)
+        assert int((x.cpu().int() @ w.cpu().int()).abs().max()) > 2 ** 15
+
+
+@pytest.mark.gpu
+def test_forced_tensor_core_int_matmul_raises_on_what_it_cannot_take():
+    """int32 operands or K = 0 forced onto the tensor cores raise; the
+    CUDA-core kernel is not run in their place."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    dev = torch.device("cuda")
+    xi = torch.ones((64, 32), dtype=torch.int32, device=dev)
+    x0 = torch.ones((64, 0), dtype=torch.int8, device=dev)
+    w0 = torch.ones((0, 16), dtype=torch.int8, device=dev)
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="tensor-core"):
+        kops.int_matmul(xi, xi.T.contiguous(), use_kernel=True,
+                        route=TENSOR_CORES)
+    with pytest.raises(ValueError, match="tensor-core"):
+        kops.int_matmul(x0, w0, use_kernel=True, route=TENSOR_CORES)
+    assert sum(_build.LAUNCH_COUNTS.values()) == 0
 
 
 @pytest.mark.gpu
