@@ -15,25 +15,34 @@ use), then runs six phases and prints one JSON object per line:
   kernel_grid  every kernel against its plain PyTorch version on the card,
                over the CPU tests' shape grid and the main paths' real
                shapes, int_matmul on both of its routes over an edge grid
-               of K, N and M; integers and the dequant epilogue must be
-               equal,
+               of K, N and M, multithreshold on both of its routes over
+               an edge grid of N and C (INT32_MIN/MAX, +-inf, NaN, equal
+               thresholds, views off 16 bytes), quantize on misaligned
+               views and ragged totals; integers and the dequant
+               epilogue must be equal,
                flash attention within 2e-5 (float32) or, on the
                tensor-core kernel, one output ulp plus 2^-8 max|v|
                (bfloat16) / 2^-10 max|v| (float16): twice the effect of
                rounding P to 16 bits
   main_path    workload -> build_flow -> compile() -> inference for the
-               four QNN workloads and for TFC/CNV at the paper's widths,
-               batch 256: float64 mode bit-exact against the numpy
-               interpreter, float32 mode (fused epilogues) to 1e-5; ms per
-               batch, ms per op type from one ``profile()`` call, the
-               int_matmul launches by route and the calls' shapes
+               four QNN workloads, TFC/CNV at the paper's widths and
+               CNV-w2a8 (8-bit activations: N = 255 tails), batch 256:
+               float64 mode bit-exact against the numpy interpreter,
+               float32 mode (fused epilogues) to 1e-5; ms per batch, ms
+               per op type from one ``profile()`` call, the int_matmul and
+               multithreshold launches by route (each multithreshold call
+               on the route ``route_for`` gives it; CNV-w2a8 must take the
+               search) and the calls' shapes
   no_fallback  the launch counts of one inference equal what the plan says
                (so no route ran a plain version instead of its kernel)
   kernel_times each kernel's device time, wrapper, plain version, bound
                and library call at the main paths' shapes; int_matmul on
                both routes at every call of CNV(64,32) and TFC(784), both
                routes' device time at the other configurations' calls,
-               and the tensor-core kernel's ring depth swept
+               and the tensor-core kernel's ring depth swept; both
+               multithreshold routes swept over N (the crossover), the
+               multithreshold bound by bytes or by the compares of a
+               search, M*C*ceil(log2(N+1))
   lm_prefill   the LM slice: qwen2-1.5b at full width (28 layers) with
                seeded random weights.  float32, B=1, S=1024: logits with
                the flash-attention kernel against plain attention, and
@@ -83,6 +92,8 @@ from repro_torch.kernels import _build, ops as kops          # noqa: E402
 from repro_torch.kernels.int_matmul import (                 # noqa: E402
     CUDA_CORES, ROUTES, TENSOR_CORES, int_matmul as int_matmul_kernel,
     k_major, route_for)
+from repro_torch.kernels.multithreshold import (             # noqa: E402
+    ROUTES as MT_ROUTES, SEARCH, route_for as mt_route_for)
 from repro_torch.kernels.flash_attention import (            # noqa: E402
     flash_attention_fwd, tolerance as fa_tolerance)
 from repro_torch.kernels.ref import flash_attention_ref      # noqa: E402
@@ -349,13 +360,74 @@ def grid_int_matmul(rng) -> dict:
                 max_abs_err=worst)
 
 
+# the edge grid of both multithreshold routes: every N and C crossed, in
+# int32, float32 and float64
+MT_GRID_N = (0, 1, 2, 3, 7, 15, 16, 31, 63, 64, 127, 128, 255)
+MT_GRID_C = (1, 4, 8, 16, 17, 33, 64, 130, 256)
+MT_GRID_M = (5, 37, 300, 1000)
+MT_OUT = (torch.int8, torch.int16, torch.int32)
+
+
+def offset_view(a: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A copy of ``a`` whose data lies ``nbytes`` past a 16-byte
+    boundary (a view into a larger buffer)."""
+    size = a.element_size()
+    flat = torch.empty(a.numel() + 32 // size, dtype=a.dtype,
+                       device=a.device)
+    lead = (-flat.data_ptr() % 16 + nbytes) // size
+    view = flat[lead:lead + a.numel()].view(a.shape)
+    view.copy_(a)
+    check(view.data_ptr() % 16 == nbytes, "offset_view missed its offset")
+    return view
+
+
+def mt_edge_case(rng, m, c, n, dt):
+    """x (m, c) and ascending thresholds (n, c) of numpy type ``dt`` with
+    the edge values: INT32_MIN/MAX (int32), +-inf (floats) in x and T, NaN
+    in x, a run of equal thresholds, rows of exact ties."""
+    if dt == np.int32:
+        info = np.iinfo(np.int32)
+        pool = np.array([info.min, info.min + 1, info.max - 1, info.max, 0,
+                         -1, 1], np.int64)
+        t = rng.integers(-300, 300, (n, c))
+        x = rng.integers(-350, 350, (m, c))
+        xpool = pool
+    else:
+        pool = np.array([np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30])
+        t = rng.integers(-1200, 1200, (n, c)) / 4
+        x = rng.integers(-1400, 1400, (m, c)) / 4
+        xpool = np.append(pool, np.nan)
+    t = np.where(rng.random((n, c)) < 0.1, rng.choice(pool, (n, c)), t)
+    x = np.where(rng.random((m, c)) < 0.1, rng.choice(xpool, (m, c)), x)
+    if n > 4:
+        t[:3] = t[3]                     # a run of equal thresholds
+    t = np.sort(t.astype(dt), axis=0)
+    x = x.astype(dt)
+    if n and m > 2:                      # rows of exact ties
+        x[1] = t[n // 2]
+        x[2] = t[-1]
+    return x, t
+
+
 def grid_multithreshold(rng) -> dict:
     worst, cases = 0.0, 0
+    by_route = {r: 0 for r in MT_ROUTES}
+
+    def one(x, t, what, route=None, **kw):
+        nonlocal worst, cases
+        got = kops.multithreshold(x, t, use_kernel=True, route=route, **kw)
+        want = kops.multithreshold(x, t, use_kernel=False, **kw)
+        worst = max(worst, max_abs_err(
+            got, want, f"multithreshold {what} route={route} {kw}"))
+        cases += 1
+        if route is not None:
+            by_route[route] += 1
+
+    # the CPU tests' shapes and the main path's, on the automatic route
     shapes = [(5, 3, 3), (1, 10, 15), (33, 130, 7), (256, 128, 255),
               (BATCH * 32 * 32, 64, 3), (BATCH * 32 * 32, 64, 15),
-              (BATCH * 16 * 16, 64, 255)]
-    for dt, tdt in ((np.int32, torch.int32), (np.float32, torch.float32),
-                    (np.float64, torch.float64)):
+              (BATCH * 16 * 16, 64, 255), (BATCH * 16 * 16, 16, 255)]
+    for dt in (np.int32, np.float32, np.float64):
         for m, c, n in shapes:
             # quarter-grid values (truncated to whole numbers for int32):
             # exact ties are frequent, and ties count
@@ -364,37 +436,62 @@ def grid_multithreshold(rng) -> dict:
                              ).astype(dt), axis=0))
             for kw in (dict(out_bias=-1), dict(out_dtype=torch.int32),
                        dict(out_bias=3, out_dtype=torch.int16)):
-                got = kops.multithreshold(x, t, use_kernel=True, **kw)
-                want = kops.multithreshold(x, t, use_kernel=False, **kw)
-                worst = max(worst, max_abs_err(
-                    got, want, f"multithreshold {tdt} {m}x{c} N={n} {kw}"))
-                cases += 1
+                one(x, t, f"{np.dtype(dt).name} {m}x{c} N={n}", **kw)
+    # the edge grid, each route forced; every fifth x one element past a
+    # 16-byte boundary (4 bytes; 8 for float64: no 16-byte loads), output
+    # types and biases in turns
+    i = 0
+    for dt in (np.int32, np.float32, np.float64):
+        for n in MT_GRID_N:
+            for c in MT_GRID_C:
+                m = MT_GRID_M[i % len(MT_GRID_M)]
+                xn, tn = mt_edge_case(rng, m, c, n, dt)
+                x, t = dev(xn), dev(tn)
+                if i % 5 == 0:
+                    x = offset_view(x, x.element_size())
+                kw = dict(out_bias=(0, -1, 3, -128)[i % 4],
+                          out_dtype=MT_OUT[i % 3])
+                for route in MT_ROUTES:
+                    one(x, t, f"edge {np.dtype(dt).name} {m}x{c} N={n}"
+                              f"{' offset' if i % 5 == 0 else ''}",
+                        route, **kw)
+                i += 1
     x = torch.full((8, 4), 10_000, dtype=torch.int32, device=DEV)
     t = torch.arange(255, dtype=torch.int32, device=DEV)[:, None] \
         .expand(255, 4)
     out = kops.multithreshold(x, t, use_kernel=True)
     check(out.dtype == torch.int16 and int(out.max()) == 255
           and int(out.min()) == 255, "N=255 output wrapped")
-    return dict(cases=cases + 1, max_abs_err=worst)
+    return dict(cases=cases + 1, cases_by_forced_route=by_route,
+                max_abs_err=worst)
 
 
 def grid_quantize(rng) -> dict:
     worst, cases = 0.0, 0
-    shapes = [(1, 1), (3, 10), (257, 5), (256, 128), (BATCH * 3 * 32, 32),
+    # totals that are not a multiple of 4, per-channel C that is not either
+    shapes = [(1, 1), (3, 10), (257, 5), (256, 128), (7, 3), (33, 7),
+              (BATCH * 3 * 16, 16), (BATCH * 3 * 32, 32), (BATCH, 49),
               (BATCH, 784)]
     for dt in (np.float32, np.float64):
         for m, c in shapes:
-            x = dev((rng.normal(size=(m, c)) * 3).astype(dt))
-            s = dev(rng.uniform(0.01, 0.3, c).astype(np.float32))
-            z = dev(rng.integers(-2, 3, c).astype(np.float32))
-            for kw in (dict(), dict(qmin=-8, qmax=7),
-                       dict(qmin=0, qmax=255, out_dtype=torch.int32)):
-                for sc, zp in ((s, z), (s[:1], z[:1])):
-                    got = kops.quantize(x, sc, zp, use_kernel=True, **kw)
-                    want = kops.quantize(x, sc, zp, use_kernel=False, **kw)
-                    worst = max(worst, max_abs_err(
-                        got, want, f"quantize {np.dtype(dt).name} {m}x{c}"))
-                    cases += 1
+            for offset in (0, 4, 8):     # x on 16 bytes, and views off it
+                if offset == 4 and dt == np.float64:
+                    continue
+                x = dev((rng.normal(size=(m, c)) * 3).astype(dt))
+                if offset:
+                    x = offset_view(x, offset)
+                s = dev(rng.uniform(0.01, 0.3, c).astype(np.float32))
+                z = dev(rng.integers(-2, 3, c).astype(np.float32))
+                for kw in (dict(), dict(qmin=-8, qmax=7),
+                           dict(qmin=0, qmax=255, out_dtype=torch.int32)):
+                    for sc, zp in ((s, z), (s[:1], z[:1])):
+                        got = kops.quantize(x, sc, zp, use_kernel=True, **kw)
+                        want = kops.quantize(x, sc, zp, use_kernel=False,
+                                             **kw)
+                        worst = max(worst, max_abs_err(
+                            got, want, f"quantize {np.dtype(dt).name} {m}x{c}"
+                                       f" offset {offset} {kw}"))
+                        cases += 1
         # x / s lands exactly on k + 0.5: round half to even
         k = np.arange(-12, 12)
         x = dev(((k + 0.5) * 0.25).astype(dt).reshape(4, 6))
@@ -574,10 +671,33 @@ def stage_sweep(rng, m, k, n, stages) -> dict:
     return dict(shape=f"{m}x{k}x{n}", ms_by_stages=ms)
 
 
-def time_multithreshold(rng, m, c, n, dt) -> dict:
+def mt_bound(m, c, n, dt):
+    """Bytes (x and T read once, an int32 out written once) against the
+    compares of a search, M*C*ceil(log2(N + 1)): the least work of the
+    function, not the M*C*N of a linear count."""
+    size = np.dtype(dt).itemsize
+    return bound(m * c * size + n * c * size + m * c * 4,
+                 float(m) * c * int(n).bit_length(), ALU_OPS_PER_S)
+
+
+def mt_inputs(rng, m, c, n, dt):
     x = dev(rng.integers(-500, 500, (m, c)).astype(dt))
     t = dev(np.sort(rng.integers(-400, 400, (n, c)), axis=0).astype(dt))
+    return x, t
+
+
+def mt_route_ms(x, t) -> dict:
+    """Device ms per launch of each multithreshold route, forced."""
+    return {r: device_ms(lambda r=r: kops.multithreshold(
+        x, t, use_kernel=True, route=r, out_dtype=torch.int32),
+        GRAPH_LAUNCHES) for r in MT_ROUTES}
+
+
+def time_multithreshold(rng, m, c, n, dt, per_batch=None) -> dict:
+    """The automatic route's time is ``ms``; both routes' beside it."""
+    x, t = mt_inputs(rng, m, c, n, dt)
     kw = dict(out_dtype=torch.int32)
+
     def kernel():
         return kops.multithreshold(x, t, use_kernel=True, **kw)
 
@@ -585,19 +705,31 @@ def time_multithreshold(rng, m, c, n, dt) -> dict:
         return torch.searchsorted(t.T.contiguous(), x.T.contiguous(),
                                   right=True)
     wrapper = time_ms(kernel, 10)
-    ms = device_ms(kernel, GRAPH_LAUNCHES)
+    by_route = mt_route_ms(x, t)
+    auto = mt_route_for(m, c, n, x.dtype)
     plain = time_ms(
         lambda: kops.multithreshold(x, t, use_kernel=False, **kw),
         2, warmup=1)
     check(torch.equal(library().T.to(torch.int32), kernel()),
           f"multithreshold {m}x{c} N={n}: torch.searchsorted disagrees")
     lib = time_ms(library, 5, warmup=1)
-    size = np.dtype(dt).itemsize
-    b_ms, by = bound(m * c * size + n * c * size + m * c * 4,
-                     float(m) * c * n, ALU_OPS_PER_S)
-    return dict(shape=f"{np.dtype(dt).name} {m}x{c} N={n}", ms=ms,
-                wrapper_ms=wrapper, plain_ms=plain, bound_ms=b_ms,
-                bound_by=by, library_ms=lib)
+    b_ms, by = mt_bound(m, c, n, dt)
+    return dict(shape=f"{np.dtype(dt).name} {m}x{c} N={n}", route=auto,
+                ms=by_route[auto], ms_by_route=by_route, wrapper_ms=wrapper,
+                plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib,
+                launches_per_batch=per_batch)
+
+
+def mt_sweep(rng, m, c, dt, ns) -> dict:
+    """Both routes at each N (what ``route_for``'s crossover comes
+    from)."""
+    rows = []
+    for n in ns:
+        x, t = mt_inputs(rng, m, c, n, dt)
+        b_ms, by = mt_bound(m, c, n, dt)
+        rows.append(dict(N=n, route=mt_route_for(m, c, n, x.dtype),
+                         bound_ms=b_ms, bound_by=by, **mt_route_ms(x, t)))
+    return dict(shape=f"{np.dtype(dt).name} {m}x{c}", rows=rows)
 
 
 def time_quantize(rng, m, c, dt) -> dict:
@@ -695,16 +827,29 @@ def phase_kernel_times(configs) -> dict:
                            stage_sweep(rng, hw // 16, 2304, 256,
                                        range(2, 5))],
         multithreshold=[
-            time_multithreshold(rng, hw, 64, 3, np.int32),
+            time_multithreshold(rng, hw, 64, 3, np.int32, 2),
             time_multithreshold(rng, hw, 64, 15, np.int32),
             time_multithreshold(rng, hw // 4, 64, 255, np.int32),
             time_multithreshold(rng, hw, 64, 3, np.float32),
             time_multithreshold(rng, hw, 64, 3, np.float64),
+            time_multithreshold(rng, hw, 64, 15, np.float64),
             time_multithreshold(rng, hw // 4, 64, 255, np.float64),
             time_multithreshold(rng, BATCH, 64, 3, np.int32),
+            # CNV-w2a8's tails at batch 256 (two launches each but the last)
+            time_multithreshold(rng, BATCH * 256, 16, 255, np.int32, 2),
+            time_multithreshold(rng, BATCH * 64, 32, 255, np.int32, 2),
+            time_multithreshold(rng, BATCH * 16, 64, 255, np.int32, 2),
+            time_multithreshold(rng, BATCH, 32, 255, np.float32, 1),
+        ],
+        multithreshold_sweep=[
+            mt_sweep(rng, hw, 64, np.int32, MT_SWEEP_N),
+            mt_sweep(rng, BATCH * 256, 16, np.int32, MT_SWEEP_N),
+            mt_sweep(rng, hw // 4, 64, np.float64, MT_SWEEP_N),
         ],
         quantize=[
             time_quantize(rng, BATCH * 3 * 32, 32, np.float32),
+            time_quantize(rng, BATCH * 3 * 16, 16, np.float32),
+            time_quantize(rng, BATCH, 49, np.float32),
             time_quantize(rng, BATCH * 3 * 32, 32, np.float64),
             time_quantize(rng, BATCH, 784, np.float32),
         ],
@@ -719,7 +864,13 @@ def phase_kernel_times(configs) -> dict:
 CONFIGS = [(name, fn, {}) for name, fn in WORKLOADS.items()] + [
     ("CNV-w2a2(ch=64,img=32)", make_cnv, dict(ch=64, img=32)),
     ("TFC-w2a2(in_dim=784)", make_tfc, dict(in_dim=784)),
+    # 8-bit activations: seven tails of N = 255 thresholds
+    ("CNV-w2a8", make_cnv, dict(wbits=2, abits=8)),
 ]
+# the configuration whose tails must take the search route
+MT_SEARCH_CONFIG = "CNV-w2a8"
+# the N of kernel_times' sweep of both multithreshold routes
+MT_SWEEP_N = (3, 7, 15, 31, 63, 127, 255)
 # the configurations whose int_matmul calls kernel_times times in full
 IM_TIMED = ("CNV-w2a2(ch=64,img=32)", "TFC-w2a2(in_dim=784)")
 
@@ -740,6 +891,23 @@ def record_int_matmul(calls: list):
         yield
     finally:
         kops.int_matmul = kernel
+
+
+@contextlib.contextmanager
+def record_multithreshold(calls: list):
+    """Record (M, C, N, compare dtype) of every ``multithreshold`` call
+    the lowered model makes."""
+    kernel = kops.multithreshold
+
+    def recorder(x, t, **kw):
+        calls.append((int(x.shape[0]), int(x.shape[1]), int(t.shape[0]),
+                      str(x.dtype)[6:]))
+        return kernel(x, t, **kw)
+    kops.multithreshold = recorder
+    try:
+        yield
+    finally:
+        kops.multithreshold = kernel
 
 
 def feeds_for(model, batch: int, seed: int) -> dict:
@@ -816,7 +984,8 @@ def run_config(name, factory, kwargs) -> dict:
     (inp,) = model.graph.inputs
     before = dict(_build.LAUNCH_COUNTS)
     calls: list = []
-    with record_int_matmul(calls):
+    mt_calls: list = []
+    with record_int_matmul(calls), record_multithreshold(mt_calls):
         out = fast(feeds)
     moved = {k: v - before.get(k, 0)
              for k, v in _build.LAUNCH_COUNTS.items()}
@@ -826,6 +995,18 @@ def run_config(name, factory, kwargs) -> dict:
     check(sum(by_route.values()) == launched["int_matmul"],
           f"{name}: int_matmul launches by route {by_route} do not add up "
           f"to {launched['int_matmul']}")
+    # multithreshold: each call on the route route_for gives its shape
+    mt_by_route = {r: moved.get(f"multithreshold:{r}", 0) for r in MT_ROUTES}
+    mt_expect = {r: 0 for r in MT_ROUTES}
+    for m, c, n, dt in mt_calls:
+        mt_expect[mt_route_for(m, c, n, getattr(torch, dt))] += 1
+    check(mt_by_route == mt_expect
+          and sum(mt_by_route.values()) == launched["multithreshold"],
+          f"{name}: multithreshold launches by route {mt_by_route}, "
+          f"route_for gives {mt_expect}, total {launched['multithreshold']}")
+    if name == MT_SEARCH_CONFIG:
+        check(mt_by_route[SEARCH] > 0,
+              f"{name}: no multithreshold launch took the search route")
     ref = model.execute({inp: feeds[inp][:4]})
     for o in model.graph.outputs:
         check(out[o].shape[0] == BATCH and out[o].dtype == np.float32
@@ -843,9 +1024,13 @@ def run_config(name, factory, kwargs) -> dict:
         fast(feeds)                      # returns numpy: ends synchronised
     ms = (time.perf_counter() - t0) / reps * 1e3
     distinct = sorted(set(calls), key=calls.index)
+    mt_distinct = sorted(set(mt_calls), key=mt_calls.index)
     return dict(
         int_matmul_calls=[list(c) + [calls.count(c)] for c in distinct],
         int_matmul_launches_by_route=by_route,
+        multithreshold_calls=[list(c) + [mt_calls.count(c)]
+                              for c in mt_distinct],
+        multithreshold_launches_by_route=mt_by_route,
         step_ms_by_op=profile_by_op(fast, feeds),
         name=name, flow_s=round(flow_s, 3), nodes=len(model.graph.nodes),
         kernel_calls=fast.kernel_calls,
@@ -870,8 +1055,13 @@ def phase_main_path() -> dict:
                 for r in ROUTES}
     check(by_route[TENSOR_CORES] > 0,
           "the main path never launched the tensor-core int_matmul")
+    mt_by_route = {r: _build.LAUNCH_COUNTS.get(f"multithreshold:{r}", 0)
+                   for r in MT_ROUTES}
+    for r, v in mt_by_route.items():
+        check(v > 0, f"the main path never launched multithreshold route {r}")
     return dict(phase="main_path", configs=results, launches=total,
-                int_matmul_launches_by_route=by_route)
+                int_matmul_launches_by_route=by_route,
+                multithreshold_launches_by_route=mt_by_route)
 
 
 def phase_no_fallback(results) -> dict:

@@ -112,7 +112,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sira_int_matmul.argtypes = [p, p, p, p, p, ll, ll, ll, ll, ll, ll,
                                     i, i, i, i, i, p]
     lib.sira_int_matmul.restype = i
-    lib.sira_multithreshold.argtypes = [p, p, p, ll, ll, i, i, i, i, p]
+    lib.sira_multithreshold.argtypes = [p, p, p, ll, ll, i, i, i, i, i, p]
     lib.sira_multithreshold.restype = i
     lib.sira_quantize.argtypes = [p, p, p, p, ll, ll, i, i, i, i, i, p]
     lib.sira_quantize.restype = i

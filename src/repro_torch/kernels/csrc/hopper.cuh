@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// this directory (flash_attention.cu, int_matmul.cu): shared-memory
+// Hopper (sm_90a) building blocks shared by the kernels of this directory
+// (flash_attention.cu, int_matmul.cu, multithreshold.cu): shared-memory
 // addresses, mbarriers, TMA copies between device and shared memory, the
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand, wgmma
 // fences, and libcuda's tensor-map encoder reached through the runtime
@@ -98,6 +98,16 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
         "[%0, {%2, %3}], [%1];"
         :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0),
            "r"(c1) : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared memory to a 16-byte-aligned
+// global address, one bulk copy; joins this thread's open bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+        :: "l"(reinterpret_cast<uint64_t>(dst)), "r"(src), "r"(bytes)
+        : "memory");
 }
 
 __device__ __forceinline__ void bulk_commit() {

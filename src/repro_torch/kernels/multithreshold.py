@@ -1,5 +1,5 @@
 """Fused MultiThreshold layer tail (paper §4.1.3/§5.3) — wrapper of the
-CUDA kernel ``csrc/multithreshold.cu``.
+CUDA kernels ``csrc/multithreshold.cu``.
 
 Replaces ``src/repro/kernels/multithreshold.py`` (``_mt_kernel`` /
 ``multithreshold``): the dequant → BN → activation → requant elementwise
@@ -9,12 +9,17 @@ threshold vector T (length N = 2^n_o − 1),
     out = out_bias + sum_i (x >= T_i)
 
 Thresholds are stored transposed (N, C) so the channel index is the
-fastest one for x, T and out alike.  Bound by bytes for small N and by the
-M·C·N compares at N = 255; see the note at the head of the source.  The
-plain PyTorch version is ``ref.multithreshold_ref``; the wrapper uses it
-only for tensors that lie on the CPU.
+fastest one for x, T and out alike.  Two kernels compute the function on
+the card, bit for bit alike: a compare-count (bound by bytes at small N)
+and a per-column binary search (for large N, where N compares per element
+would bound the count by integer issue).  :func:`route_for` picks one
+from the shape and type alone; see the note at the head of the source.
+The plain PyTorch version is ``ref.multithreshold_ref``; the wrapper uses
+it only for tensors that lie on the CPU.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -22,8 +27,44 @@ from . import _build
 
 _X_KIND = {torch.int32: 0, torch.float32: 1, torch.float64: 2}
 _OUT_KIND = {torch.int8: 0, torch.int16: 1, torch.int32: 2}
-_COLS_PER_BLOCK = 32     # BC of csrc/multithreshold.cu
-_ROWS_PER_BLOCK = 64     # BY * ROWS of csrc/multithreshold.cu
+
+COMPARE_COUNT = "compare_count"
+SEARCH = "search"
+ROUTES = (COMPARE_COUNT, SEARCH)
+_ROUTE_CODE = {COMPARE_COUNT: 0, SEARCH: 1}
+#: columns per tile (grid y) of csrc/multithreshold.cu, and the pitch of
+#: the search route's threshold slab; grid x is a persistent grid the
+#: launcher sizes to the SMs
+_TILE_COLS = 32
+#: shared memory one block may use on an H100 (the search route's slab)
+_MAX_SLAB_BYTES = 227 * 1024
+#: the search route from this many thresholds on
+SEARCH_FROM_N = 16
+
+
+def slab_bytes(n_thresholds: int, dtype: torch.dtype) -> int:
+    """Shared memory of the search route's slab: 2^k - 1 rows (the least
+    that hold N thresholds) of 32 columns."""
+    rows = (1 << int(n_thresholds).bit_length()) - 1
+    return rows * _TILE_COLS * (8 if dtype == torch.float64 else 4)
+
+
+def route_for(M: int, C: int, N: int, dtype: torch.dtype) -> str:
+    """The kernel that computes a multithreshold of x (M, C) against N
+    thresholds on the card: the compare-count below ``SEARCH_FROM_N``
+    thresholds, the search from there on where its slab fits a block.
+
+    On an H100 (``chip_smoke.py`` ``kernel_times`` sweeps both routes over
+    N = 3..255; the table is in PERF.md) the count wins at N <= 7, the
+    search from N = 31 on, by several times.  At N = 15 the two are
+    within 10% of each other: the search ahead at the large int32 shapes,
+    the count at float64 and at the main path's N = 15 tails (MobileNet's
+    16384 x 8/16/32, where one step of a 1024-thread search block does
+    not pay for its slab), so the count keeps N = 15.  Never chosen on
+    failure."""
+    if N >= SEARCH_FROM_N and slab_bytes(N, dtype) <= _MAX_SLAB_BYTES:
+        return SEARCH
+    return COMPARE_COUNT
 
 
 def infer_out_dtype(n_thresholds: int, out_bias: int):
@@ -43,12 +84,15 @@ def infer_out_dtype(n_thresholds: int, out_bias: int):
 
 
 def multithreshold(x: torch.Tensor, thresholds: torch.Tensor, *,
-                   out_bias: int = 0, out_dtype=None) -> torch.Tensor:
+                   out_bias: int = 0, out_dtype=None,
+                   route: Optional[str] = None) -> torch.Tensor:
     """x (M, C) accumulators; thresholds (N, C) ascending per column, same
     dtype as x (int32, float32 or float64).
 
     Returns out (M, C): out_bias + #{i : x >= T[i, c]} as out_dtype
     (default: derived from the [out_bias, out_bias + N] output range).
+    ``route`` (internal: tests and measurements) forces one of
+    :data:`ROUTES`; by default :func:`route_for` picks it.
     """
     from .ref import multithreshold_ref
     if x.dim() != 2 or thresholds.dim() != 2 or \
@@ -64,6 +108,13 @@ def multithreshold(x: torch.Tensor, thresholds: torch.Tensor, *,
                          f"{thresholds.device}")
     M, C = x.shape
     N = thresholds.shape[0]
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"multithreshold: route {route!r} is not one of "
+                         f"{ROUTES}")
+    if route == SEARCH and slab_bytes(N, x.dtype) > _MAX_SLAB_BYTES:
+        raise ValueError(f"multithreshold search route: the slab of N = {N} "
+                         f"{x.dtype} thresholds exceeds one block's shared "
+                         f"memory")
     out_bias = int(out_bias)
     if out_dtype is None:
         out_dtype = infer_out_dtype(N, out_bias)
@@ -76,8 +127,10 @@ def multithreshold(x: torch.Tensor, thresholds: torch.Tensor, *,
                         f"supported (int8/int16/int32)")
     if M == 0 or C == 0:
         return torch.empty((M, C), dtype=out_dtype, device=x.device)
-    _build.check_grid("multithreshold", -(-M // _ROWS_PER_BLOCK),
-                      -(-C // _COLS_PER_BLOCK))
+    if route is None:
+        route = route_for(M, C, N, x.dtype)
+    # grid x is capped by the launcher; grid y is one block column per tile
+    _build.check_grid("multithreshold", 1, -(-C // _TILE_COLS))
     x, thresholds = x.contiguous(), thresholds.contiguous()
     out = torch.empty((M, C), dtype=out_dtype, device=x.device)
     lib = _build.load()
@@ -85,7 +138,8 @@ def multithreshold(x: torch.Tensor, thresholds: torch.Tensor, *,
         err = lib.sira_multithreshold(
             x.data_ptr(), thresholds.data_ptr(), out.data_ptr(), M, C, N,
             out_bias, _X_KIND[x.dtype], _OUT_KIND[out_dtype],
-            torch.cuda.current_stream().cuda_stream)
+            _ROUTE_CODE[route], torch.cuda.current_stream().cuda_stream)
     _build.check_launch("multithreshold", err)
     _build.LAUNCH_COUNTS["multithreshold"] += 1
+    _build.LAUNCH_COUNTS[f"multithreshold:{route}"] += 1
     return out

@@ -52,10 +52,13 @@ def int_matmul(x, w, scale=None, bias=None, *, acc_bits: int = 32,
 
 
 def multithreshold(x, thresholds, *, out_bias: int = 0, out_dtype=None,
-                   use_kernel: Optional[bool] = None):
+                   use_kernel: Optional[bool] = None,
+                   route: Optional[str] = None):
+    """``route`` (internal: tests and measurements) forces one of the two
+    CUDA kernels; see ``kernels/multithreshold.py``."""
     if _wants_kernel(use_kernel, x, "multithreshold"):
         return _multithreshold_kernel(x, thresholds, out_bias=out_bias,
-                                      out_dtype=out_dtype)
+                                      out_dtype=out_dtype, route=route)
     return ref.multithreshold_ref(x, thresholds, out_bias=out_bias,
                                   out_dtype=out_dtype)
 

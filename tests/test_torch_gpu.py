@@ -22,6 +22,7 @@ from repro_torch.kernels import _build, ops as kops
 from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                  tolerance)
 from repro_torch.kernels.int_matmul import ROUTES, TENSOR_CORES, k_major
+from repro_torch.kernels.multithreshold import ROUTES as MT_ROUTES
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import attention as attn_mod, get_model
 
@@ -71,6 +72,98 @@ def test_cuda_kernel_equals_plain_version(kernel):
             got = kops.quantize(x, s, z, use_kernel=True)
             assert torch.equal(got, kops.quantize(x, s, z,
                                                   use_kernel=False))
+
+
+def _offset_view(a: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A copy of ``a`` lying ``nbytes`` past a 16-byte boundary."""
+    size = a.element_size()
+    flat = torch.empty(a.numel() + 32 // size, dtype=a.dtype,
+                       device=a.device)
+    lead = (-flat.data_ptr() % 16 + nbytes) // size
+    view = flat[lead:lead + a.numel()].view(a.shape)
+    view.copy_(a)
+    assert view.data_ptr() % 16 == nbytes
+    return view
+
+
+def _mt_edge(rng, m, c, n, dt):
+    """x (m, c) and ascending thresholds (n, c) with INT32_MIN/MAX or
+    +-inf in both, NaN in x, a run of equal thresholds and exact ties."""
+    if dt == np.int32:
+        info = np.iinfo(np.int32)
+        pool = np.array([info.min, info.max, info.max - 1, 0], np.int64)
+        t, x, xpool = (rng.integers(-300, 300, (n, c)),
+                       rng.integers(-350, 350, (m, c)), pool)
+    else:
+        pool = np.array([np.inf, -np.inf, 0.0, 1e30])
+        t, x = (rng.integers(-1200, 1200, (n, c)) / 4,
+                rng.integers(-1400, 1400, (m, c)) / 4)
+        xpool = np.append(pool, np.nan)
+    t = np.where(rng.random((n, c)) < 0.15, rng.choice(pool, (n, c)), t)
+    x = np.where(rng.random((m, c)) < 0.15, rng.choice(xpool, (m, c)), x)
+    if n > 4:
+        t[:3] = t[3]
+    t = np.sort(t.astype(dt), axis=0)
+    x = x.astype(dt)
+    if n:
+        x[1], x[2] = t[n // 2], t[-1]
+    return x, t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(MT_ROUTES))
+@pytest.mark.parametrize("dtype", ["int32", "float32", "float64"])
+def test_multithreshold_route_equals_plain_version_on_edges(dtype, route):
+    """Each route, forced, over narrow and odd C, N = 0, 15, 16, 255 and
+    the edge values, x contiguous and one element off 16 bytes; one
+    launch of that route each, 0 differing elements."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    dt = getattr(np, dtype)
+    rng = np.random.default_rng(len(dtype) + len(route))
+    dev = torch.device("cuda")
+    i = 0
+    for n in (0, 15, 16, 255):
+        for c in (1, 4, 8, 16, 17, 64, 130):
+            xn, tn = _mt_edge(rng, (7, 300)[i % 2], c, n, dt)
+            x, t = _t(xn).to(dev), _t(tn).to(dev)
+            for view in (x, _offset_view(x, x.element_size())):
+                kw = dict(out_bias=(0, -1, 3)[i % 3],
+                          out_dtype=(torch.int8, torch.int16,
+                                     torch.int32)[i % 3])
+                _build.reset_launch_counts()
+                got = kops.multithreshold(view, t, use_kernel=True,
+                                          route=route, **kw)
+                assert _build.LAUNCH_COUNTS[f"multithreshold:{route}"] == 1
+                want = kops.multithreshold(view, t, use_kernel=False, **kw)
+                assert got.dtype == want.dtype and torch.equal(got, want), \
+                    (n, c, kw, view.data_ptr() % 16)
+                i += 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_quantize_takes_misaligned_views_and_ragged_totals(dtype):
+    """x one element off 16 bytes, totals not a multiple of 4, per-channel
+    C not a multiple of 4, per-tensor and per-channel: equal to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    dt = getattr(np, dtype)
+    rng = np.random.default_rng(3)
+    dev = torch.device("cuda")
+    for m, c in ((7, 3), (33, 7), (257, 5), (1, 1), (300, 64)):
+        x = _t((rng.normal(size=(m, c)) * 3).astype(dt)).to(dev)
+        s = _t(rng.uniform(.01, .3, c).astype(np.float32)).to(dev)
+        z = _t(rng.integers(-2, 3, c).astype(np.float32)).to(dev)
+        for view in (x, _offset_view(x, x.element_size())):
+            for sc, zp in ((s, z), (s[:1], z[:1])):
+                for kw in (dict(), dict(qmin=0, qmax=255,
+                                        out_dtype=torch.int32)):
+                    got = kops.quantize(view, sc, zp, use_kernel=True, **kw)
+                    want = kops.quantize(view, sc, zp, use_kernel=False,
+                                         **kw)
+                    assert torch.equal(got, want), (m, c, kw)
 
 
 # the main path's edge shapes: K not a multiple of 16 (no TMA for x), N

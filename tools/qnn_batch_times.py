@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""QNN ms per batch of the six ``chip_smoke.py`` configurations, on one
+"""QNN ms per batch of the seven ``chip_smoke.py`` configurations, on one
 CUDA card, for comparing two trees or two ``int_matmul`` routes in one
 run of the machine.
 
@@ -17,8 +17,10 @@ warm call, then ``--rounds`` rounds of three calls at batch ``--batch``
 (host clock; every call returns numpy, so it ends synchronised).  Prints
 one JSON line per configuration (median and all rounds, launches of one
 call by kernel and route) and a last line with the card's name and power
-limit.  ``--profile`` adds, from one more call under ``torch.profiler``,
-the device time of all kernels, the wall time of that call and the eight
+limit.  ``--profile`` adds, from five more calls under
+``torch.profiler`` and per call, the device time of all kernels, the wall
+time, the device time and launches of each kernel family
+(``multithreshold``, ``quantize``, ``int_matmul``, other) and the eight
 kernels that took most device time.  Without a CUDA device it exits with
 code 2.
 """
@@ -45,15 +47,20 @@ def feeds_for(model, batch: int, seed: int) -> dict:
     return {inp: np.random.default_rng(seed).uniform(lo, hi, size=shape)}
 
 
+PROFILED_CALLS = 5
+
+
 def device_profile(fast, feeds) -> dict:
-    """One call under ``torch.profiler``: wall ms, device ms summed over
-    kernels, and the eight kernels with the most device time."""
+    """``PROFILED_CALLS`` calls under ``torch.profiler``, per call: wall
+    ms, device ms summed over kernels, device ms and launches of each
+    kernel family, and the eight kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fast(feeds)
-        wall = (time.perf_counter() - t0) * 1e3
+        for _ in range(PROFILED_CALLS):
+            fast(feeds)
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_CALLS
     rows = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -61,10 +68,20 @@ def device_profile(fast, feeds) -> dict:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        rows.append((us / 1e3, e.count, e.key))
+        rows.append((us / 1e3 / PROFILED_CALLS, e.count / PROFILED_CALLS,
+                     e.key))
     rows.sort(reverse=True)
+    families = dict(multithreshold=[0.0, 0], quantize=[0.0, 0],
+                    int_matmul=[0.0, 0], other=[0.0, 0])
+    for ms, n, key in rows:
+        fam = next((f for f in ("multithreshold", "quantize") if f in key),
+                   "int_matmul" if "matmul" in key else "other")
+        families[fam][0] += ms
+        families[fam][1] += n
     return dict(profiled_wall_ms=wall,
                 device_ms=sum(r[0] for r in rows),
+                device_ms_by_family={k: dict(ms=v[0], launches=v[1])
+                                     for k, v in families.items()},
                 top_kernels=[dict(name=k[:80], ms=ms, count=n)
                              for ms, n, k in rows[:8]])
 
@@ -98,6 +115,7 @@ def main() -> None:
     configs = [(name, fn, {}) for name, fn in WORKLOADS.items()] + [
         ("CNV-w2a2(ch=64,img=32)", make_cnv, dict(ch=64, img=32)),
         ("TFC-w2a2(in_dim=784)", make_tfc, dict(in_dim=784)),
+        ("CNV-w2a8", make_cnv, dict(wbits=2, abits=8)),
     ]
     for name, factory, kwargs in configs:
         model = build_flow(factory(**kwargs)).model
