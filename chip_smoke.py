@@ -6,7 +6,7 @@ Run from the repository root, no arguments, one card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
-use), then runs six phases and prints one JSON object per line:
+use), then runs seven phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds,
                the HGMMA (16-bit wgmma) instructions of flash_attention
@@ -28,13 +28,31 @@ use), then runs six phases and prints one JSON object per line:
                four QNN workloads, TFC/CNV at the paper's widths and
                CNV-w2a8 (8-bit activations: N = 255 tails), batch 256:
                float64 mode bit-exact against the numpy interpreter,
-               float32 mode (fused epilogues) to 1e-5; ms per batch, ms
-               per op type from one ``profile()`` call, the int_matmul and
-               multithreshold launches by route (each multithreshold call
-               on the route ``route_for`` gives it; CNV-w2a8 must take the
-               search) and the calls' shapes
+               float32 mode (fused epilogues) to 1e-5 against it and,
+               over the whole batch, against the float64 plan; ms per
+               batch, ms per op type from one ``profile()`` call, the
+               int_matmul and multithreshold launches by route (each
+               multithreshold call on the route ``route_for`` gives it;
+               CNV-w2a8 must take the search) and the calls' shapes
   no_fallback  the launch counts of one inference equal what the plan says
                (so no route ran a plain version instead of its kernel)
+  sira_flow    the affine domain and the dataflow DSE.  The seven
+               main_path configurations again with affine-proven plans
+               (``build_flow(..., domain="affine")``), under the same
+               checks and launch counts, each kernel's launches counted
+               from 0 over this phase; per-op accumulator bits beside the
+               interval plans', and ms per batch of both plans timed in
+               turns in one process (median of 5 rounds of 3 calls,
+               every round kept).  HSW-w3a4 in both
+               domains must raise the reference's LoweringError.  Then
+               ``build_flow(..., steps=DATAFLOW_STEPS)`` in both domains on
+               all five workloads (pynq-z1, 1000 FPS): every column
+               ``scripts/check_bench.py`` marks exact equals
+               ``benchmarks/baselines/BENCH_dataflow.json``, the banded
+               ones lie in its bands; the LUT/DSP/BRAM estimates are
+               printed beside the baseline's.  They are outputs of the
+               analytical FPGA model, computed on the host, not
+               measurements of the card
   kernel_times each kernel's device time, wrapper, plain version, bound
                and library call at the main paths' shapes; int_matmul on
                both routes at every call of CNV(64,32) and TFC(784), both
@@ -68,9 +86,11 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib.util
 import json
 import pathlib
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -82,12 +102,15 @@ if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
     sys.exit(2)
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config                  # noqa: E402
-from repro_torch.core import build_flow                      # noqa: E402
-from repro_torch.core.workloads import (WORKLOADS, make_cnv,  # noqa: E402
-                                        make_tfc)
+from repro_torch.core import LoweringError, build_flow       # noqa: E402
+from repro_torch.core.workloads import (ALL_WORKLOADS,        # noqa: E402
+                                        WORKLOADS, make_cnv, make_tfc)
+from repro_torch.dataflow.report import (dataflow_flows,     # noqa: E402
+                                         report_row)
 from repro_torch.kernels import _build, ops as kops          # noqa: E402
 from repro_torch.kernels.int_matmul import (                 # noqa: E402
     CUDA_CORES, ROUTES, TENSOR_CORES, int_matmul as int_matmul_kernel,
@@ -953,10 +976,11 @@ def profile_by_op(compiled, feeds) -> dict:
     return {k: round(v, 4) for k, v in by_op.items()}
 
 
-def run_config(name, factory, kwargs) -> dict:
+def run_config(name, factory, kwargs, domain="interval") -> dict:
     t0 = time.perf_counter()
-    model = build_flow(factory(**kwargs)).model
+    model = build_flow(factory(**kwargs), domain=domain).model
     flow_s = time.perf_counter() - t0
+    check(model.domain == domain, f"{name}: the flow lost its domain")
 
     # float64, kernels on the card: the integer core is bit-exact against
     # the numpy interpreter, the outputs agree to 1e-12
@@ -1008,6 +1032,8 @@ def run_config(name, factory, kwargs) -> dict:
         check(mt_by_route[SEARCH] > 0,
               f"{name}: no multithreshold launch took the search route")
     ref = model.execute({inp: feeds[inp][:4]})
+    # the whole batch against the float64 plan, bit-exact above
+    ref_batch = exact(feeds)
     for o in model.graph.outputs:
         check(out[o].shape[0] == BATCH and out[o].dtype == np.float32
               and bool(np.isfinite(out[o]).all()),
@@ -1017,6 +1043,10 @@ def run_config(name, factory, kwargs) -> dict:
         check(np.allclose(out[o][:4].astype(np.float64), ref[o], rtol=1e-5,
                           atol=1e-5 * scale),
               f"{name}: float32 output {o} differs from the interpreter")
+        check(np.allclose(out[o].astype(np.float64), ref_batch[o],
+                          rtol=1e-5, atol=1e-5 * scale),
+              f"{name}: float32 output {o} at batch {BATCH} differs from "
+              f"the float64 plan")
     reps = 3
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1032,7 +1062,8 @@ def run_config(name, factory, kwargs) -> dict:
                               for c in mt_distinct],
         multithreshold_launches_by_route=mt_by_route,
         step_ms_by_op=profile_by_op(fast, feeds),
-        name=name, flow_s=round(flow_s, 3), nodes=len(model.graph.nodes),
+        name=name, domain=domain, flow_s=round(flow_s, 3),
+        nodes=len(model.graph.nodes),
         kernel_calls=fast.kernel_calls,
         kernel_calls_float64=exact.kernel_calls,
         acc_bits={op.node_name: op.acc_bits for op in fast.plan
@@ -1071,6 +1102,151 @@ def phase_no_fallback(results) -> dict:
               f"{r['expected_launches']}")
     return dict(phase="no_fallback", ok=True,
                 per_config={r["name"]: r["launches"] for r in results})
+
+
+# --------------------------------------------------------------------------
+# phase: sira_flow — affine-proven plans on the card, the dataflow report
+# --------------------------------------------------------------------------
+
+PAIRED_ROUNDS = 5        # rounds of sira_flow's interval/affine timing
+DATAFLOW_DEVICE = "pynq-z1"
+DATAFLOW_FPS = 1000.0
+BENCH_DATAFLOW = "BENCH_dataflow.json"
+# the columns printed beside the baseline's
+DATAFLOW_SHOWN = ("sira_luts", "baseline_luts", "lut_reduction",
+                  "sira_dsps", "baseline_dsps", "dsp_reduction",
+                  "sira_brams", "baseline_brams", "acc_bits_sum_interval",
+                  "acc_bits_sum_affine", "affine_luts_saved")
+
+
+def load_check_bench():
+    """The repository's benchmark gate, ``scripts/check_bench.py``: its
+    rules say which columns are exact and how wide the bands are."""
+    spec = importlib.util.spec_from_file_location(
+        "check_bench", ROOT / "scripts" / "check_bench.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dataflow_report() -> list:
+    gate = load_check_bench()
+    metrics = gate.RULES[BENCH_DATAFLOW]["metrics"]
+    baseline = json.loads((ROOT / "benchmarks" / "baselines" /
+                           BENCH_DATAFLOW).read_text())
+    check((baseline["device"], baseline["target_fps"])
+          == (DATAFLOW_DEVICE, DATAFLOW_FPS),
+          "the dataflow baseline was made at another design point")
+    base_rows = {r["workload"]: r for r in baseline["results"]}
+    rows = []
+    for name, factory in ALL_WORKLOADS.items():
+        flows = dataflow_flows(factory(), device=DATAFLOW_DEVICE,
+                               target_fps=DATAFLOW_FPS)
+        for domain, res in flows.items():
+            check([s.name for s in res.steps][-2:]
+                  == ["DataflowEstimate", "DataflowFold"]
+                  and all(res.model.metadata.get(k) is not None for k in (
+                      "dataflow_report", "dataflow_estimate", "folding")),
+                  f"{name} ({domain}): the dataflow steps left no result")
+        row = report_row(name, flows)
+        base = base_rows[name]
+        compared = [gate._compare_metric(
+            name, m, kind, floor, base.get(m), row.get(m), timing_tol=1.5,
+            ratio_tol=0.5, estimate_tol=0.05)
+            for m, (kind, floor) in metrics.items() if kind != "timing"]
+        failed = [(c.metric, c.base, c.fresh, c.note) for c in compared
+                  if c.failed]
+        check(not failed, f"{name}: dataflow columns off the baseline: "
+              f"{failed}")
+        exact = [m for m, (kind, _) in metrics.items() if kind == "exact"]
+        check(all(row[m] == base[m] for m in exact),
+              f"{name}: an exact dataflow column differs")
+        rows.append(dict(
+            workload=name, exact_columns_equal=len(exact),
+            banded_columns_within=len(compared) - len(exact),
+            port={m: row[m] for m in DATAFLOW_SHOWN},
+            baseline={m: base[m] for m in DATAFLOW_SHOWN},
+            flows_s=round(sum(s.seconds for r in flows.values()
+                              for s in r.steps), 3)))
+    return rows
+
+
+def paired_ms(name, factory, kwargs) -> dict:
+    """ms per batch of the interval and the affine float32 plan of one
+    configuration in one process: host clock, three calls per turn, the
+    plans in turns (interval, affine, affine, interval, ...); median and
+    every round."""
+    models = {d: build_flow(factory(**kwargs), domain=d).model
+              for d in ("interval", "affine")}
+    plans = {d: m.compile() for d, m in models.items()}
+    feeds = feeds_for(models["interval"], BATCH, seed=1)
+    for plan in plans.values():
+        plan(feeds)                       # warm
+    rounds: dict = {d: [] for d in plans}
+    for r in range(PAIRED_ROUNDS):
+        for d in (("interval", "affine") if r % 2 == 0
+                  else ("affine", "interval")):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                plans[d](feeds)           # returns numpy: ends synchronised
+            rounds[d].append((time.perf_counter() - t0) / 3 * 1e3)
+    return {d: dict(median=statistics.median(v), rounds=v)
+            for d, v in rounds.items()}
+
+
+def phase_sira_flow(interval_results) -> dict:
+    """The main path's configurations with affine-proven plans; every
+    count to 0 just before, read just after."""
+    _build.reset_launch_counts()
+    results = [run_config(*cfg, domain="affine") for cfg in CONFIGS]
+    total = {k: _build.LAUNCH_COUNTS.get(k, 0)
+             for k in ("int_matmul", "multithreshold", "quantize")}
+    for k, v in total.items():
+        check(v > 0, f"the affine plans never launched kernel {k}")
+    for r in results:
+        check(r["launches"] == r["expected_launches"],
+              f"{r['name']} (affine): launched {r['launches']}, the plan "
+              f"needs {r['expected_launches']}")
+    interval = {r["name"]: r for r in interval_results}
+    per_config = []
+    for cfg, r in zip(CONFIGS, results):
+        i = interval[r["name"]]
+        ms = paired_ms(*cfg)
+        check(bool(r["acc_bits"])
+              and len(r["acc_bits"]) == len(i["acc_bits"])
+              and all(a <= b for a, b in zip(r["acc_bits"].values(),
+                                             i["acc_bits"].values())),
+              f"{r['name']}: an affine accumulator is wider than the "
+              f"interval one")
+        per_config.append(dict(
+            name=r["name"],
+            acc_bits_interval=list(i["acc_bits"].values()),
+            acc_bits_affine=list(r["acc_bits"].values()),
+            ms_per_batch_interval=ms["interval"]["median"],
+            ms_per_batch_affine=ms["affine"]["median"],
+            ms_rounds_interval=ms["interval"]["rounds"],
+            ms_rounds_affine=ms["affine"]["rounds"],
+            int_tensors_exact=r["int_tensors_exact"],
+            launches=r["launches"],
+            int_matmul_launches_by_route=r["int_matmul_launches_by_route"],
+            multithreshold_launches_by_route=r[
+                "multithreshold_launches_by_route"]))
+    # HSW-w3a4 is held to analysis parity: neither plan lowers
+    for domain in ("interval", "affine"):
+        model = build_flow(ALL_WORKLOADS["HSW-w3a4"](), domain=domain).model
+        try:
+            model.compile()
+        except LoweringError as e:
+            check("HardSwish" in str(e), f"HSW-w3a4: {e}")
+        else:
+            check(False, f"HSW-w3a4 ({domain}) lowered; the reference "
+                  f"raises LoweringError")
+    return dict(phase="sira_flow", batch=BATCH, configs=per_config,
+                launches=total,
+                dataflow_note="LUT/DSP/BRAM below are outputs of the "
+                              "analytical FPGA model (pynq-z1, 1000 FPS), "
+                              "computed on the host: not chip measurements",
+                dataflow=dataflow_report())
 
 
 # --------------------------------------------------------------------------
@@ -1267,6 +1443,7 @@ def main() -> None:
     main_path = phase_main_path()
     emit(main_path)
     emit(phase_no_fallback(main_path["configs"]))
+    emit(phase_sira_flow(main_path["configs"]))
     times = phase_kernel_times(main_path["configs"])
     emit(times)
     lm = phase_lm_prefill()           # last: it holds the card's memory

@@ -20,6 +20,8 @@ from .ops import (OpDef, OP_REGISTRY, register_op, get_op,  # noqa: F401
 from .graph import Graph, Node, quant_bounds               # noqa: F401
 from .propagate import (SIRA, analyze, analysis_calls,     # noqa: F401
                         POISON, DOMAINS)
+from .affine import (AffineForm, tighten_range,            # noqa: F401
+                     fresh_symbol)
 from .model import SiraModel                               # noqa: F401
 from .streamline import (remove_identity_ops,              # noqa: F401
                          AggregationResult)
@@ -32,6 +34,7 @@ from .thresholds import (convert_tails_to_thresholds,      # noqa: F401
 from .accumulator import (minimize_accumulators, datatype_bound_bits,  # noqa: F401
                           sira_bits, summarize, accumulator_dtype,
                           exact_worst_case_bits)
+from . import costmodel  # noqa: F401  (lazy shim over dataflow.costmodel)
 from .verify import verify_ranges, instrument, stuck_channels  # noqa: F401
 from .passes import (Transformation, Fixpoint, Sequence,   # noqa: F401
                      FunctionTransformation, ExplicitizeQuantizers,
@@ -41,6 +44,9 @@ from .passes import (Transformation, Fixpoint, Sequence,   # noqa: F401
                      VerifyRanges, VerificationError, LintGraph)
 from .lint import (lint_graph, LintReport, LintFinding,    # noqa: F401
                    LintError)
+from .fuzz import (run_fuzz, check_containment,            # noqa: F401
+                   random_graph, FuzzReport, run_tail_fuzz,
+                   check_tail_exactness, random_tail_graph)
 from .lower import (lower, CompiledSiraModel, CompileBackend,  # noqa: F401
                     LoweringError, LoweredOp)
 from .convert import (graph_from_reference,                # noqa: F401

@@ -162,16 +162,19 @@ register_step("compile")(
     lambda cfg: CompileBackend())
 
 
-# dataflow DSE steps: the names stay registered so a flow that lists them
-# fails with a clear message (not a KeyError) until dataflow/ is ported.
+# dataflow DSE steps (imported lazily: repro_torch.dataflow itself imports core
+# submodules, so the factories must not run at module import time).
+# Graph-preserving; results land under metadata['dataflow_report'] /
+# metadata['dataflow_estimate'] / metadata['folding'].
 def _step_dataflow_estimate(cfg: "BuildConfig"):
-    raise NotImplementedError(
-        "step_dataflow_estimate: dataflow/ is not ported yet, see ROADMAP A")
+    from ..dataflow.passes import DataflowEstimate
+    return DataflowEstimate(device=cfg.device, target_fps=cfg.target_fps)
 
 
 def _step_dataflow_fold(cfg: "BuildConfig"):
-    raise NotImplementedError(
-        "step_dataflow_fold: dataflow/ is not ported yet, see ROADMAP A")
+    from ..dataflow.passes import DataflowFold
+    return DataflowFold(target_fps=cfg.target_fps or 30.0,
+                        device=cfg.device)
 
 
 register_step("step_dataflow_estimate")(_step_dataflow_estimate)

@@ -205,7 +205,8 @@ def _broadcastable(a: Shape, b: Shape) -> bool:
 
 
 def _infer_shapes(lt: _Linter,
-                  input_shapes: Optional[Dict[str, Shape]]) -> None:
+                  input_shapes: Optional[Dict[str, Shape]]
+                  ) -> Dict[str, Optional[Shape]]:
     g = lt.graph
     shapes: Dict[str, Optional[Shape]] = {
         k: tuple(v.shape) for k, v in g.initializers.items()}
@@ -219,6 +220,30 @@ def _infer_shapes(lt: _Linter,
         out = _check_node_shapes(lt, node, ins)
         for t in node.outputs:
             shapes[t] = out
+    return shapes
+
+
+def infer_shapes(graph: Graph,
+                 input_shapes: Optional[Dict[str, Shape]] = None
+                 ) -> Dict[str, Optional[Shape]]:
+    """Every tensor's shape as the linter infers it (``None`` where
+    unknown), from the initializers and the declared ``input_shapes``."""
+    return _infer_shapes(_Linter(graph), input_shapes)
+
+
+def contraction_dim(graph: Graph, node: Node,
+                    input_shapes: Optional[Dict[str, Shape]] = None
+                    ) -> Optional[int]:
+    """The contraction length K of a ``MatMul``/``Gemm`` node: the first
+    dim of its 2-D second operand, else the last dim of its first
+    operand; ``None`` when shape inference knows neither."""
+    shapes = infer_shapes(graph, input_shapes)
+    a, b = (shapes.get(t) for t in node.inputs[:2])
+    if b is not None and len(b) == 2:
+        return int(b[0])
+    if a:
+        return int(a[-1])
+    return None
 
 
 def _check_node_shapes(lt: _Linter, node: Node,

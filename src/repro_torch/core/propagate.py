@@ -12,7 +12,9 @@ implement the paper's propagation rules:
   * Elementwise monotonic ops propagate plain ranges (§2.4.1); value-preserving
     ops (MaxPool, Concat, transpositions) keep the scaled-int structure.
   * Dynamic x dynamic matmuls propagate plain interval hulls (beyond-paper,
-    conservative; needed for attention score/PV matmuls in LM blocks).
+    conservative; needed for attention score/PV matmuls in LM blocks): K
+    times the product hull, with K from shape inference
+    (:func:`~repro_torch.core.lint.contraction_dim`); an unknown K raises.
 
 Contribution tracking (scale_src / bias_src) feeds the streamlining
 transform; POISON marks ranges whose scale cannot be erased exactly
@@ -20,7 +22,8 @@ transform; POISON marks ranges whose scale cannot be erased exactly
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import contextvars
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -32,6 +35,12 @@ from ..obs.explain import RangeProvenance
 from ..obs.trace import get_tracer
 
 POISON = "!unerasable"
+
+# Declared input shapes of the analysis that is running, for the handlers
+# that need a shape the ranges do not carry (dynamic x dynamic MatMul K).
+_INPUT_SHAPES: contextvars.ContextVar[
+    Optional[Dict[str, Tuple[int, ...]]]] = contextvars.ContextVar(
+        "sira_input_shapes", default=None)
 
 # Full-analysis call counter.  ``SiraModel`` caches analysis results keyed
 # on the graph version; this counter lets tests (and build_flow step
@@ -64,12 +73,14 @@ class SIRA:
     so affine results are contained in interval results by construction.
     """
 
-    def __init__(self, graph: Graph, domain: str = "interval"):
+    def __init__(self, graph: Graph, domain: str = "interval",
+                 input_shapes: Optional[Dict[str, Tuple[int, ...]]] = None):
         if domain not in DOMAINS:
             raise ValueError(f"unknown domain {domain!r}; "
                              f"expected one of {DOMAINS}")
         self.graph = graph
         self.domain = domain
+        self.input_shapes = input_shapes
 
     def run(self, input_ranges: Dict[str, ScaledIntRange],
             record: Optional[Dict[str, RangeProvenance]] = None
@@ -79,14 +90,19 @@ class SIRA:
         with get_tracer().span("analysis:propagate", domain=self.domain,
                                nodes=len(self.graph.nodes),
                                provenance=record is not None):
-            return self._run(input_ranges, record)
+            token = _INPUT_SHAPES.set(self.input_shapes)
+            try:
+                return self._run(input_ranges, record)
+            finally:
+                _INPUT_SHAPES.reset(token)
 
     def _run(self, input_ranges: Dict[str, ScaledIntRange],
              record: Optional[Dict[str, RangeProvenance]]
              ) -> Dict[str, ScaledIntRange]:
-        if self.domain == "affine":
-            raise NotImplementedError(
-                "domain='affine' is not ported yet, see ROADMAP A")
+        affine = self.domain == "affine"
+        if affine:
+            from .affine import affine_step, seed_forms
+            forms = seed_forms(self.graph, input_ranges)
         ranges: Dict[str, ScaledIntRange] = {}
         for name, val in self.graph.initializers.items():
             ranges[name] = ScaledIntRange.point(val)
@@ -110,20 +126,32 @@ class SIRA:
             outs = fn(node, self.graph, in_ranges)
             if not isinstance(outs, tuple):
                 outs = (outs,)
-            for name, r in zip(node.outputs, outs):
+            tightened = [False] * len(outs)
+            if affine:
+                pre = outs
+                outs = tuple(affine_step(node, self.graph, forms,
+                                         in_ranges, outs))
+                if record is not None:
+                    tightened = [_width(a) < _width(b)
+                                 for a, b in zip(outs, pre)]
+            for i, (name, r) in enumerate(zip(node.outputs, outs)):
                 ranges[name] = r
                 if record is not None:
                     record[name] = _node_record(
                         name, node, self.graph, fn, in_ranges, r,
-                        self.domain, False)
+                        self.domain, tightened[i])
         return ranges
 
 
 def analyze(graph: Graph, input_ranges: Dict[str, ScaledIntRange],
             domain: str = "interval",
-            record: Optional[Dict[str, RangeProvenance]] = None
+            record: Optional[Dict[str, RangeProvenance]] = None,
+            input_shapes: Optional[Dict[str, Tuple[int, ...]]] = None
             ) -> Dict[str, ScaledIntRange]:
-    return SIRA(graph, domain=domain).run(input_ranges, record=record)
+    """``input_shapes`` declares graph-input shapes for the handlers that
+    need one (a MatMul of two dynamic operands needs its K)."""
+    return SIRA(graph, domain=domain, input_shapes=input_shapes).run(
+        input_ranges, record=record)
 
 
 # --------------------------------------------------------------------------
@@ -352,11 +380,18 @@ def _prop_div(node: Node, graph: Graph, rs: List[ScaledIntRange]):
 # MatMul / Gemm / Conv (§3.2.4)
 # --------------------------------------------------------------------------
 
+def _along_k(a: Array, K: int) -> Array:
+    """A range array laid out along the contraction axis: as it is when
+    its last dim is K (a (..., K) point activation keeps its rows), else
+    broadcast to (K,)."""
+    return a if a.ndim >= 1 and a.shape[-1] == K else np.broadcast_to(a, (K,))
+
+
 def _matmul_ranges(rw: ScaledIntRange, rx: ScaledIntRange, K: int):
     """Y = X @ W with W (K, M) constant. Returns ScaledIntRange for Y."""
     W = _const_val(rw)
-    x_lo = np.broadcast_to(rx.lo, (K,)) if rx.lo.shape != (K,) else rx.lo
-    x_hi = np.broadcast_to(rx.hi, (K,)) if rx.hi.shape != (K,) else rx.hi
+    x_lo = _along_k(rx.lo, K)
+    x_hi = _along_k(rx.hi, K)
     lo, hi = dot_interval(W, x_lo, x_hi)
 
     can_si = (
@@ -372,10 +407,8 @@ def _matmul_ranges(rw: ScaledIntRange, rx: ScaledIntRange, K: int):
         return ScaledIntRange(lo=lo, hi=hi)
 
     qW = rw.int_lo  # point
-    qx_lo = np.broadcast_to(rx.int_lo, (K,)) if rx.int_lo.shape != (K,) \
-        else rx.int_lo
-    qx_hi = np.broadcast_to(rx.int_hi, (K,)) if rx.int_hi.shape != (K,) \
-        else rx.int_hi
+    qx_lo = _along_k(rx.int_lo, K)
+    qx_hi = _along_k(rx.int_hi, K)
     q_lo, q_hi = dot_interval(qW, qx_lo, qx_hi)
     sW = np.broadcast_to(rw.scale, W.shape)[0]          # (M,)
     s_Y = float(rx.scale) * sW
@@ -388,13 +421,27 @@ def _matmul_ranges(rw: ScaledIntRange, rx: ScaledIntRange, K: int):
     )
 
 
+def _dynamic_contraction_dim(node: Node, graph: Graph) -> int:
+    from .lint import contraction_dim
+    K = contraction_dim(graph, node, _INPUT_SHAPES.get())
+    if K is None:
+        raise ValueError(
+            f"{node.op_type} node {node.name!r}: both operands are dynamic "
+            f"and shape inference does not know the contraction length K; "
+            f"declare the graph inputs' shapes (analyze(..., "
+            f"input_shapes=...))")
+    return K
+
+
 @handler("MatMul")
 def _prop_matmul(node: Node, graph: Graph, rs: List[ScaledIntRange]):
     rx, rw = rs
-    if rw.is_point and not rx.is_point:
+    if rw.is_point:
+        # a point activation goes through dot_interval exactly (on its
+        # real lo/hi where it carries no scaled-int form)
         K = _const_val(rw).shape[0]
         return _matmul_ranges(rw, rx, K)
-    if rx.is_point and not rw.is_point:
+    if rx.is_point:
         # constant @ dynamic: transpose the problem
         W = _const_val(rx)            # (M, K)
         K = W.shape[-1]
@@ -402,10 +449,10 @@ def _prop_matmul(node: Node, graph: Graph, rs: List[ScaledIntRange]):
         x_hi = np.broadcast_to(rw.hi, (K,)) if rw.hi.shape != (K,) else rw.hi
         lo, hi = dot_interval(W.T, x_lo, x_hi)
         return ScaledIntRange(lo=lo, hi=hi)
-    # dynamic x dynamic (attention): conservative hull, per-tensor
+    # dynamic x dynamic (attention): K times the per-tensor product hull
     lo0, hi0 = float(np.min(rs[0].lo)), float(np.max(rs[0].hi))
     lo1, hi1 = float(np.min(rs[1].lo)), float(np.max(rs[1].hi))
-    K = int(node.attrs.get("contract_dim", 1))
+    K = _dynamic_contraction_dim(node, graph)
     p_lo, p_hi = mul_intervals(np.asarray(lo0), np.asarray(hi0),
                                np.asarray(lo1), np.asarray(hi1))
     return ScaledIntRange(lo=K * p_lo, hi=K * p_hi)

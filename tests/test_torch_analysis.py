@@ -23,9 +23,9 @@ ALL_NAMES = list(J_WORKLOADS)
 RANGE_ARRAYS = ("lo", "hi", "int_lo", "int_hi", "scale", "bias")
 
 
-def _flows(name):
-    return (jcore.build_flow(J_WORKLOADS[name]()),
-            tcore.build_flow(T_WORKLOADS[name]()))
+def _flows(name, domain="interval"):
+    return (jcore.build_flow(J_WORKLOADS[name](), domain=domain),
+            tcore.build_flow(T_WORKLOADS[name](), domain=domain))
 
 
 def _name_map(gj, gt):
@@ -69,7 +69,10 @@ def _same_value(a, b, what):
 @pytest.mark.parametrize("name", ALL_NAMES)
 def test_flow_graph_parity(name):
     """Same op sequence, attrs and initializer values (bit for bit)."""
-    rj, rt = _flows(name)
+    assert_graph_parity(*_flows(name))
+
+
+def assert_graph_parity(rj, rt):
     gj, gt = rj.graph, rt.graph
     tmap, _ = _name_map(gj, gt)
     assert [n.op_type for n in gj.nodes] == [n.op_type for n in gt.nodes]
@@ -91,7 +94,10 @@ def test_flow_graph_parity(name):
 @pytest.mark.parametrize("name", ALL_NAMES)
 def test_flow_range_parity(name):
     """Every tensor's ScaledIntRange has identical fields."""
-    rj, rt = _flows(name)
+    assert_range_parity(*_flows(name))
+
+
+def assert_range_parity(rj, rt):
     tmap, _ = _name_map(rj.graph, rt.graph)
     ranges_j, ranges_t = rj.model.ranges, rt.model.ranges
     assert {tmap[k] for k in ranges_j if k in tmap} == \
@@ -117,7 +123,10 @@ def test_flow_range_parity(name):
 @pytest.mark.parametrize("name", ALL_NAMES)
 def test_flow_reports_parity(name):
     """tail_reports, threshold specs and per-layer accumulator bits."""
-    rj, rt = _flows(name)
+    assert_reports_parity(*_flows(name))
+
+
+def assert_reports_parity(rj, rt):
     tmap, nmap = _name_map(rj.graph, rt.graph)
     assert len(rj.tail_reports) == len(rt.tail_reports)
     for a, b in zip(rj.tail_reports, rt.tail_reports):
@@ -146,7 +155,10 @@ def test_flow_reports_parity(name):
 @pytest.mark.parametrize("name", ALL_NAMES)
 def test_flow_outputs_parity(name):
     """Both optimized graphs compute the same function (numpy executor)."""
-    rj, rt = _flows(name)
+    assert_outputs_parity(*_flows(name))
+
+
+def assert_outputs_parity(rj, rt):
     feeds = next(iter(rj.model.sample_inputs(
         rng=np.random.default_rng(5), n=1)))
     oj = rj.model.execute(feeds)
@@ -155,20 +167,36 @@ def test_flow_outputs_parity(name):
         np.testing.assert_array_equal(oj[a], ot[b])
 
 
-def test_affine_domain_not_ported():
+def test_affine_domain_runs_in_the_port():
+    """``domain="affine"`` runs through ``build_flow`` and ``analyze`` and
+    never proves a wider range than the interval domain."""
     wl = T_WORKLOADS["TFC-w2a2"]()
-    with pytest.raises(NotImplementedError, match="affine"):
-        tcore.build_flow(wl, domain="affine")
-    with pytest.raises(NotImplementedError, match="affine"):
-        tcore.analyze(wl.graph, wl.input_range, domain="affine")
+    res = tcore.build_flow(wl, domain="affine")
+    assert res.model.domain == "affine"
+    assert sum(r.sira_bits for r in res.accumulator_reports) == 26
+    r_aff = tcore.analyze(wl.graph, wl.input_range, domain="affine")
+    r_int = tcore.analyze(wl.graph, wl.input_range, domain="interval")
+    assert r_aff.keys() == r_int.keys()
+    for k, r in r_aff.items():
+        assert float(np.min(r.lo)) >= float(np.min(r_int[k].lo)) - 1e-9, k
+        assert float(np.max(r.hi)) <= float(np.max(r_int[k].hi)) + 1e-9, k
 
 
-@pytest.mark.parametrize("step", ["step_dataflow_estimate",
-                                  "step_dataflow_fold"])
-def test_dataflow_steps_registered_but_not_ported(step):
+@pytest.mark.parametrize("step,transform,keys", [
+    ("step_dataflow_estimate", "DataflowEstimate",
+     ("dataflow_report", "dataflow_estimate")),
+    ("step_dataflow_fold", "DataflowFold", ("folding",)),
+])
+def test_dataflow_steps_run_in_the_port(step, transform, keys):
+    """Each dataflow step runs on its own, in both domains, and puts its
+    result under the model's metadata."""
     assert step in tcore.STEP_REGISTRY
-    with pytest.raises(NotImplementedError, match="dataflow"):
-        tcore.build_flow(T_WORKLOADS["TFC-w2a2"](), steps=[step])
+    for domain in ("interval", "affine"):
+        res = tcore.build_flow(T_WORKLOADS["TFC-w2a2"](), steps=[step],
+                               domain=domain, target_fps=1000.0)
+        assert [s.name for s in res.steps] == ["lint_graph", transform]
+        for k in keys:
+            assert res.model.metadata.get(k) is not None, (domain, k)
 
 
 def test_accumulator_dtype_returns_torch_dtypes():

@@ -1,8 +1,10 @@
 """Tests that need a CUDA device: each hand-written kernel against its
-plain PyTorch version, one compiled model against the numpy interpreter,
-and a reduced LM prefill through the flash-attention kernel, on the card.
-They skip elsewhere (decided inside each test, never at import).  This file imports neither ``jax`` nor ``repro``, so it
-runs on a machine that has only the port's dependencies:
+plain PyTorch version, compiled models (interval- and affine-proven
+plans) against the numpy interpreter, and a reduced LM prefill through
+the flash-attention kernel, on the card.  They skip elsewhere (decided
+inside each test, never at import).  This file imports neither ``jax``
+nor ``repro``, so it runs on a machine that has only the port's
+dependencies:
 
     python -m pytest tests/test_torch_gpu.py -q
 
@@ -283,6 +285,38 @@ def test_compiled_model_on_the_card_is_bit_exact(name):
         np.testing.assert_array_equal(got[t].astype(np.float64), want[t])
     for o in model.graph.outputs:
         np.testing.assert_allclose(got[o], want[o], rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["TFC-w2a2", "CNV-w2a2"])
+def test_affine_plan_on_the_card_is_bit_exact(name):
+    """An affine-proven plan (``build_flow(..., domain="affine")``) through
+    ``compile()`` on the card: integer tensors equal the numpy interpreter
+    exactly, every kernel launched, and no accumulator is wider than the
+    interval plan's."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    model = build_flow(WORKLOADS[name](), domain="affine").model
+    assert model.domain == "affine"
+    compiled = model.compile(dtype=torch.float64)
+    compiled = model.compile(dtype=torch.float64,
+                             extra_outputs=compiled.int_tensors)
+    feeds = next(iter(model.sample_inputs(rng=np.random.default_rng(1))))
+    want = model.execute(feeds, record_all=True)
+    _build.reset_launch_counts()
+    got = compiled(feeds)
+    assert all(_build.LAUNCH_COUNTS[k] > 0
+               for k in ("int_matmul", "multithreshold", "quantize"))
+    for t in compiled.int_tensors:
+        np.testing.assert_array_equal(got[t].astype(np.float64), want[t])
+    for o in model.graph.outputs:
+        np.testing.assert_allclose(got[o], want[o], rtol=1e-12, atol=1e-12)
+    interval = build_flow(WORKLOADS[name]()).model.compile(
+        dtype=torch.float64)
+    bits_a = [op.acc_bits for op in compiled.plan if op.acc_bits is not None]
+    bits_i = [op.acc_bits for op in interval.plan if op.acc_bits is not None]
+    assert len(bits_a) == len(bits_i)
+    assert all(a <= i for a, i in zip(bits_a, bits_i))
 
 
 # (B, Sq, Sk, H, KV, hd, keywords): one case per feature, each run in

@@ -1,7 +1,7 @@
 """The port stands alone: ``repro_torch`` (and ``chip_smoke.py``) import
 neither ``jax`` nor the JAX package ``repro``, proven in a fresh process
-that runs the port's QNN main path and one reduced LM prefill, and by a
-scan of the sources."""
+that runs the port's QNN main path (affine domain, dataflow steps), the
+fuzzer and one reduced LM prefill, and by a scan of the sources."""
 import pathlib
 import re
 import subprocess
@@ -20,9 +20,13 @@ import repro_torch
 import torch
 import repro_torch.core, repro_torch.kernels, repro_torch.obs
 import repro_torch.configs, repro_torch.models, repro_torch.quant
-from repro_torch.core import build_flow
+import repro_torch.dataflow, repro_torch.dataflow.report
+from repro_torch.core import DATAFLOW_STEPS, build_flow, run_fuzz
 from repro_torch.core.workloads import WORKLOADS
-model = build_flow(WORKLOADS["TFC-w2a2"]()).model
+model = build_flow(WORKLOADS["TFC-w2a2"](), domain="affine",
+                   steps=DATAFLOW_STEPS).model
+assert model.metadata["dataflow_report"].lut_reduction > 0
+assert run_fuzz(n_random=2, workloads=False).ok
 compiled = model.compile(device="cpu")
 feeds = next(iter(model.sample_inputs(rng=np.random.default_rng(0))))
 out = compiled(feeds)
