@@ -6,7 +6,7 @@ Run from the repository root, no arguments, one card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
-use), then runs seven phases and prints one JSON object per line:
+use), then runs eight phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds,
                the HGMMA (16-bit wgmma) instructions of flash_attention
@@ -53,6 +53,20 @@ use), then runs seven phases and prints one JSON object per line:
                printed beside the baseline's.  They are outputs of the
                analytical FPGA model, computed on the host, not
                measurements of the card
+  qat_chain    accumulator-aware QAT (``repro_torch.qat``) at
+               ``BENCH_qat.json``'s width, mlp16-32x32-4, w4/a4, 8-bit
+               inputs, 80 steps, seed 0, budgets 0, 14, 12, 10: each trains
+               on the card (every param and master on CUDA, every loss
+               finite, params and masters inside the caps), its trained
+               weights are exported, proven (SIRA bits <= budget on every
+               constrained layer) and priced (pynq-z1; SIRA LUTs and DSPs
+               must not grow over 14 -> 12 -> 10), and the built model runs
+               a batch of 256 of its own inputs through the kernels (float64
+               plan bit-exact, float32 within 1e-5, launches = plan); the
+               same run on the CPU gives step 1's loss within 1e-5; six
+               steps straight equal three + resume bit for bit on the card
+               under deterministic algorithms (budget 12); ms per train
+               step, seconds per budget, ms per compiled batch
   kernel_times each kernel's device time, wrapper, plain version, bound
                and library call at the main paths' shapes; int_matmul on
                both routes at every call of CNV(64,32) and TFC(784), both
@@ -72,7 +86,8 @@ use), then runs seven phases and prints one JSON object per line:
                prefill, tokens/s and peak memory at B=4, S=2048 and B=1,
                S=32768
 
-then a ``{"kernels": [...]}`` line (per kernel: launches on its path,
+then a ``{"kernels": [...]}`` line (per kernel: launches on its path and
+on each phase's path,
 max abs error against the plain version, and at the main path's shape
 ``ms``, the kernel's time on the device, beside ``wrapper_ms``, one eager
 call of its wrapper, the plain version, the card's bound and a library
@@ -88,11 +103,14 @@ import copy
 import dataclasses
 import importlib.util
 import json
+import os
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -124,6 +142,10 @@ from repro_torch.models import attention as lm_attention     # noqa: E402
 from repro_torch.models import get_model                     # noqa: E402
 from repro_torch.obs.trace import (Tracer, get_tracer,       # noqa: E402
                                    set_tracer)
+from repro_torch.dataflow import compare_sira_vs_baseline  # noqa: E402
+from repro_torch.qat import (QATConfig, check_budget_invariant,  # noqa: E402
+                             proven_layer_bits, run_qat)
+from repro_torch.tree import leaves                          # noqa: E402
 
 DEV = torch.device("cuda")
 BATCH = 256
@@ -981,7 +1003,16 @@ def run_config(name, factory, kwargs, domain="interval") -> dict:
     model = build_flow(factory(**kwargs), domain=domain).model
     flow_s = time.perf_counter() - t0
     check(model.domain == domain, f"{name}: the flow lost its domain")
+    return check_plans(name, model, feeds_for(model, 4, seed=0),
+                       feeds_for(model, BATCH, seed=1), flow_s)
 
+
+def check_plans(name, model, small, feeds, flow_s) -> dict:
+    """Both plans of a built model on the card: the float64 plan's
+    integer tensors bit-exact against the numpy interpreter on ``small``,
+    the float32 plan (fused epilogues) on the batch ``feeds`` against the
+    interpreter and the float64 plan; launches per route, ms per batch."""
+    domain = model.domain
     # float64, kernels on the card: the integer core is bit-exact against
     # the numpy interpreter, the outputs agree to 1e-12
     exact = model.compile(dtype=torch.float64)
@@ -989,7 +1020,6 @@ def run_config(name, factory, kwargs, domain="interval") -> dict:
     check(len(exact.int_tensors) > 0, f"{name}: no integer tensors")
     exact = model.compile(dtype=torch.float64,
                           extra_outputs=exact.int_tensors)
-    small = feeds_for(model, 4, seed=0)
     want = model.execute(small, record_all=True)
     got = exact(small)
     for t in exact.int_tensors:
@@ -1004,7 +1034,7 @@ def run_config(name, factory, kwargs, domain="interval") -> dict:
     fast = model.compile()
     check(fast.dtype == torch.float32 and fast.device.type == "cuda",
           "default compile() must be float32 on the card")
-    feeds = feeds_for(model, BATCH, seed=1)
+    batch = len(next(iter(feeds.values())))
     (inp,) = model.graph.inputs
     before = dict(_build.LAUNCH_COUNTS)
     calls: list = []
@@ -1035,7 +1065,7 @@ def run_config(name, factory, kwargs, domain="interval") -> dict:
     # the whole batch against the float64 plan, bit-exact above
     ref_batch = exact(feeds)
     for o in model.graph.outputs:
-        check(out[o].shape[0] == BATCH and out[o].dtype == np.float32
+        check(out[o].shape[0] == batch and out[o].dtype == np.float32
               and bool(np.isfinite(out[o]).all()),
               f"{name}: float32 output {o} has a wrong shape or is not "
               f"finite")
@@ -1045,7 +1075,7 @@ def run_config(name, factory, kwargs, domain="interval") -> dict:
               f"{name}: float32 output {o} differs from the interpreter")
         check(np.allclose(out[o].astype(np.float64), ref_batch[o],
                           rtol=1e-5, atol=1e-5 * scale),
-              f"{name}: float32 output {o} at batch {BATCH} differs from "
+              f"{name}: float32 output {o} at batch {batch} differs from "
               f"the float64 plan")
     reps = 3
     torch.cuda.synchronize()
@@ -1068,8 +1098,8 @@ def run_config(name, factory, kwargs, domain="interval") -> dict:
         kernel_calls_float64=exact.kernel_calls,
         acc_bits={op.node_name: op.acc_bits for op in fast.plan
                   if op.acc_bits is not None},
-        int_tensors_exact=len(exact.int_tensors), batch=BATCH,
-        ms_per_batch=ms, samples_per_s=BATCH / ms * 1e3,
+        int_tensors_exact=len(exact.int_tensors), batch=batch,
+        ms_per_batch=ms, samples_per_s=batch / ms * 1e3,
         launches=launched, expected_launches=expect)
 
 
@@ -1247,6 +1277,195 @@ def phase_sira_flow(interval_results) -> dict:
                               "analytical FPGA model (pynq-z1, 1000 FPS), "
                               "computed on the host: not chip measurements",
                 dataflow=dataflow_report())
+
+
+# --------------------------------------------------------------------------
+# phase: qat_chain — accumulator-aware QAT on the card, SIRA and the DSE on
+# the trained weights, the trained model through the kernels
+# --------------------------------------------------------------------------
+
+BENCH_QAT = "BENCH_qat.json"
+QAT_BUDGETS = (0, 14, 12, 10)     # loosest first, as the benchmark sweeps
+QAT_RESUME_BUDGET = 12
+QAT_TIMED_STEPS = (10, 80)        # ms per train step: median over these
+QAT_STEP1_RTOL = 1e-5             # step-1 loss, CPU against the card
+
+
+def qat_bench() -> dict:
+    """``BENCH_qat.json``: the QAT model's published width and run (read
+    as data; its rows are printed beside the card's)."""
+    bench = json.loads((ROOT / "benchmarks" / "baselines" /
+                        BENCH_QAT).read_text())
+    m = re.fullmatch(r"mlp(\d+)-([\dx]+)-(\d+)", bench["arch"])
+    check(m is not None, f"unknown QAT arch {bench['arch']!r}")
+    check([r["budget"] for r in bench["results"]] == list(QAT_BUDGETS),
+          "BENCH_qat.json sweeps other budgets")
+    bench["config"] = dict(
+        in_dim=int(m[1]), hidden=tuple(int(h) for h in m[2].split("x")),
+        classes=int(m[3]), weight_bits=bench["weight_bits"],
+        act_bits=bench["act_bits"], zero_center=bench["zero_center"],
+        steps=bench["steps"], seed=bench["seed"])
+    return bench
+
+
+def within_caps(model, params) -> bool:
+    """Params inside each constrained layer's caps (tests/test_qat.py)."""
+    for i, (layer, budget) in enumerate(zip(params["layers"],
+                                            model.budgets())):
+        if budget is None:
+            continue
+        v = layer["W"].double().cpu().numpy() / model.w_scales[i]
+        cap_pos, cap_neg = budget.caps()
+        if cap_neg >= 0:
+            ok = bool((np.maximum(v, 0).sum(0) <= cap_pos + 1e-3).all()
+                      and (np.maximum(-v, 0).sum(0) <= cap_neg + 1e-3).all())
+        else:
+            ok = bool((np.abs(v).sum(0) <= cap_pos + 1e-3).all())
+        if not ok:
+            return False
+    return True
+
+
+def qat_budget(bench, budget: int) -> dict:
+    """Train at ``budget`` on the card, prove and price the trained
+    weights, run the exported model through the kernels, and train the
+    same run on the CPU for step 1's loss."""
+    cfg = QATConfig(budget=budget, **bench["config"])
+    t0 = time.perf_counter()
+    res = run_qat(cfg, device=DEV)
+    train_s = time.perf_counter() - t0
+    state = res.state
+    check(all(t.is_cuda for t in leaves((state.params, state.opt))),
+          f"budget {budget}: a param or optimizer tensor left the card")
+    check(len(res.losses) == cfg.steps
+          and bool(np.isfinite(res.losses).all()),
+          f"budget {budget}: a loss is not finite")
+    check(within_caps(res.model, state.params)
+          and within_caps(res.model, state.opt.master),
+          f"budget {budget}: params or masters outside the caps")
+
+    t1 = time.perf_counter()
+    result, bits = proven_layer_bits(res.model, state.params,
+                                     name=f"qat-b{budget}")
+    flow_s = time.perf_counter() - t1
+    if budget:       # raises unless proven <= budget on every layer
+        check_budget_invariant(res.model, state.params, bits)
+    comp = compare_sira_vs_baseline(result.model, device=bench["device"])
+
+    x = res.model.synth_batch(cfg.steps, BATCH)["tokens"].astype(np.float64)
+    plans = check_plans(f"qat-b{budget}", result.model, {"X": x},
+                        {"X": x}, flow_s)
+    check(plans["launches"] == plans["expected_launches"],
+          f"budget {budget}: launched {plans['launches']}, the plan needs "
+          f"{plans['expected_launches']}")
+
+    cpu = run_qat(cfg, device="cpu")
+    step1 = abs(res.losses[0] - cpu.losses[0]) / abs(cpu.losses[0])
+    check(step1 <= QAT_STEP1_RTOL,
+          f"budget {budget}: step-1 loss on the card {res.losses[0]} vs "
+          f"the CPU {cpu.losses[0]}")
+    lo, hi = QAT_TIMED_STEPS
+    return dict(
+        budget=budget, proven_bits=bits, task_loss=res.final_loss,
+        sira_luts=comp.sira.luts, sira_dsps=comp.sira.dsps,
+        baseline_luts=comp.baseline.luts, baseline_dsps=comp.baseline.dsps,
+        train_s=train_s, seconds=time.perf_counter() - t0,
+        ms_per_train_step=statistics.median(
+            res.step_seconds[lo - 1:hi]) * 1e3,
+        step1_loss_card=res.losses[0], step1_loss_cpu=cpu.losses[0],
+        step1_rel_diff=step1,
+        max_abs_loss_diff_steps_2_on=max(
+            abs(a - b) for a, b in zip(res.losses[1:], cpu.losses[1:])),
+        ms_per_compiled_batch=plans["ms_per_batch"],
+        int_tensors_exact=plans["int_tensors_exact"],
+        int_matmul_calls=plans["int_matmul_calls"],
+        # the route route_for gives each call (M, K, N, operand type)
+        int_matmul_routes=[route_for(c[0], c[1], c[2], getattr(torch, c[3]))
+                           for c in plans["int_matmul_calls"]],
+        int_matmul_launches_by_route=plans["int_matmul_launches_by_route"],
+        multithreshold_calls=plans["multithreshold_calls"],
+        multithreshold_launches_by_route=plans[
+            "multithreshold_launches_by_route"],
+        launches=plans["launches"])
+
+
+def qat_resume(bench) -> dict:
+    """Six steps straight equal a kill after the step-3 checkpoint and a
+    resume in fresh objects, on the card, under deterministic algorithms
+    (a nondeterministic op raises instead of passing by luck)."""
+    cfg = dict(bench["config"], steps=6)
+    prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    prev_mode = torch.are_deterministic_algorithms_enabled()
+    # cuBLAS refuses deterministic mode without a fixed workspace
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            a, b = pathlib.Path(tmp, "a"), pathlib.Path(tmp, "b")
+            straight = run_qat(QATConfig(budget=QAT_RESUME_BUDGET,
+                                         ckpt_dir=str(a), ckpt_every=3,
+                                         **cfg), device=DEV)
+            b.mkdir()
+            shutil.copy(a / "ckpt_00000003.npz", b)
+            resumed = run_qat(QATConfig(budget=QAT_RESUME_BUDGET,
+                                        ckpt_dir=str(b), ckpt_every=3,
+                                        **cfg), device=DEV)
+    finally:
+        torch.use_deterministic_algorithms(prev_mode)
+        if prev_env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_env
+    pairs = list(zip(leaves((straight.state.params, straight.state.opt)),
+                     leaves((resumed.state.params, resumed.state.opt))))
+    check(resumed.resumed_from == 3
+          and resumed.losses[:3] == straight.losses[:3]
+          and all(x.is_cuda == y.is_cuda and torch.equal(x, y)
+                  for x, y in pairs),
+          "QAT resume on the card is not bit-exact")
+    return dict(budget=QAT_RESUME_BUDGET, steps=6, resumed_from=3,
+                tensors_equal=len(pairs), deterministic_algorithms=True)
+
+
+def phase_qat_chain(card: str) -> dict:
+    """Every count to 0 just before this path, read just after."""
+    check(torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls must run at full precision: TF32 would move "
+          "the fake-quant rounding boundaries")
+    bench = qat_bench()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = [qat_budget(bench, b) for b in QAT_BUDGETS]
+    for prev, row in zip(rows[1:], rows[2:]):       # 14 -> 12 -> 10
+        check(row["sira_luts"] <= prev["sira_luts"] + 1e-9
+              and row["sira_dsps"] <= prev["sira_dsps"],
+              f"SIRA resources grew from budget {prev['budget']} to "
+              f"{row['budget']}")
+    resume = qat_resume(bench)
+    total = {k: _build.LAUNCH_COUNTS.get(k, 0)
+             for k in ("int_matmul", "multithreshold", "quantize")}
+    for k, v in total.items():
+        check(v > 0, f"the QAT chain never launched kernel {k}")
+    shown = ("proven_bits", "task_loss", "sira_luts", "sira_dsps",
+             "baseline_luts", "baseline_dsps")
+    return dict(
+        phase="qat_chain", card=card, arch=bench["arch"],
+        config=dict(bench["config"], batch=QATConfig.batch,
+                    input_bits=QATConfig.input_bits),
+        budgets=rows,
+        baseline={r["budget"]: {k: r[k] for k in shown}
+                  for r in bench["results"]},
+        luts_dsps_monotone_14_12_10=True,
+        luts_le_unconstrained=rows[1]["sira_luts"] <= rows[0]["sira_luts"],
+        resume=resume, seconds=time.perf_counter() - t0,
+        note="ms_per_train_step: host clock, median over steps "
+             f"{QAT_TIMED_STEPS[0]}-{QAT_TIMED_STEPS[1]}, each step ending "
+             "when its loss reaches the host; ms_per_compiled_batch: the "
+             f"float32 plan, host clock, batch {BATCH}; LUT/DSP: the "
+             "analytical FPGA model (pynq-z1), not chip measurements; the "
+             "init differs from the reference's (torch.Generator), so only "
+             "the invariants are checked against BENCH_qat.json's rows",
+        launches=total)
 
 
 # --------------------------------------------------------------------------
@@ -1443,7 +1662,10 @@ def main() -> None:
     main_path = phase_main_path()
     emit(main_path)
     emit(phase_no_fallback(main_path["configs"]))
-    emit(phase_sira_flow(main_path["configs"]))
+    sira = phase_sira_flow(main_path["configs"])
+    emit(sira)
+    qat = phase_qat_chain(env["nvidia_smi"])
+    emit(qat)
     times = phase_kernel_times(main_path["configs"])
     emit(times)
     lm = phase_lm_prefill()           # last: it holds the card's memory
@@ -1456,6 +1678,11 @@ def main() -> None:
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"],
             launches=launches[name],
+            launches_by_path=dict(
+                main_path=main_path["launches"].get(name, 0),
+                sira_flow=sira["launches"].get(name, 0),
+                qat_chain=qat["launches"].get(name, 0),
+                lm_prefill=lm["launches"].get(name, 0)),
             max_abs_err=grid[name]["max_abs_err"], ms=t["ms"],
             wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],

@@ -92,8 +92,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise NotImplementedError(
-            "flash_attention kernel: no backward kernel yet (the training "
-            "slice's work); run the forward under torch.no_grad()")
+            "flash_attention kernel: no backward kernel yet (ROADMAP B4); "
+            "run the forward under torch.no_grad(), or differentiate on "
+            "the CPU, where the plain attention runs")
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel: head dim {hd} > "
                          f"{MAX_HEAD_DIM}")

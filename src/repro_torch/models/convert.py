@@ -18,11 +18,11 @@ from torch import nn
 
 class ParamTree(nn.Module):
     """A nested dict (and list) of tensors as a module: each tensor is a
-    frozen ``nn.Parameter`` (``requires_grad=False``: the port has no
-    backward kernel yet), each dict a child ``ParamTree``, each list an
-    ``nn.ModuleList``.  Reads like the dict it came from (``p["wq"]``,
-    ``p.get("bq")``, ``"lm_head" in p``), so the model functions take
-    either."""
+    frozen ``nn.Parameter`` (``requires_grad=False``: a train step
+    differentiates the detached :meth:`tree` instead), each dict a child
+    ``ParamTree``, each list an ``nn.ModuleList``.  Reads like the dict it
+    came from (``p["wq"]``, ``p.get("bq")``, ``"lm_head" in p``), so the
+    model functions take either."""
 
     def __init__(self, tree: Mapping[str, Any]):
         super().__init__()
@@ -44,6 +44,16 @@ class ParamTree(nn.Module):
 
     def get(self, key: str, default=None):
         return self[key] if key in self else default
+
+    def tree(self) -> Dict[str, Any]:
+        """The nested dict (and list) of tensors this module holds,
+        detached: the tree a train step differentiates."""
+        out: Dict[str, Any] = {k: v.detach()
+                               for k, v in self._parameters.items()}
+        for k, m in self._modules.items():
+            out[k] = ([c.tree() for c in m] if isinstance(m, nn.ModuleList)
+                      else m.tree())
+        return out
 
 
 def _tensor(a: Any) -> torch.Tensor:

@@ -12,10 +12,15 @@ embedding prepended):
                                    flash-attention kernel on a card
   * ``init_cache(...)``          → KV cache (stacked over layers)
   * ``decode_step(...)``         → (logits (B, 1, V), cache), plain PyTorch
+  * ``loss(params, ...)``        → mean token cross-entropy, differentiable
+                                   on the CPU (plain attention); on a card
+                                   the flash-attention wrapper raises for
+                                   inputs that need a gradient (no backward
+                                   kernel yet, ROADMAP B4)
+  * ``param_tree()``             → the weights as a nested dict of tensors,
+                                   the params a train step takes
 
-``moe``, ``ssm`` and ``hybrid`` are not ported yet; ``loss`` and every
-gradient wait for the training slice (no backward kernel of the
-attention yet).
+``moe``, ``ssm`` and ``hybrid`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.lower import resolve_device
@@ -166,14 +172,23 @@ class Model(nn.Module):
                 quant=None) -> torch.Tensor:
         """Prefill: tokens (B, S) → logits (B, S_total, vocab_padded),
         S_total = S plus the frontend's positions."""
+        return self._forward(self._weights(), tokens, frontend_embed,
+                             quant=quant)
+
+    def _forward(self, params, tokens, frontend_embed, *, quant=None,
+                 remat: bool = False) -> torch.Tensor:
         cfg = self.cfg
-        params = self._weights()
         x = self._embed(params, tokens, frontend_embed)
         for i, p in enumerate(params["layers"]):
             local = cfg.sliding_window and i % 2 == 0
-            x = _dense_layer_fwd(p, x, cfg,
-                                 window=cfg.sliding_window if local else 0,
-                                 quant=quant)
+            kw = dict(window=cfg.sliding_window if local else 0, quant=quant)
+            if remat and torch.is_grad_enabled():
+                # recompute the layer in the backward pass, as the
+                # reference's jax.checkpoint does
+                x = checkpoint(_dense_layer_fwd, p, x, cfg,
+                               use_reentrant=False, **kw)
+            else:
+                x = _dense_layer_fwd(p, x, cfg, **kw)
         return self._logits(params, x)
 
     # ------------------------------------------------------------ cache
@@ -222,6 +237,31 @@ class Model(nn.Module):
                                     quant=quant, rolling=rolling,
                                     valid_from=valid_from)
         return self._logits(params, x), cache
+
+    # -------------------------------------------------------------- loss
+    def loss(self, params, tokens, labels, frontend_embed=None, *,
+             quant=None, remat: bool = False) -> torch.Tensor:
+        """Mean token cross-entropy (float32 logsumexp) of ``params`` (a
+        tree like :meth:`param_tree`'s) on ``tokens`` → ``labels`` (B, S);
+        the frontend's positions are dropped.  MoE's aux term is added
+        when a forward left one (no MoE family is ported yet)."""
+        logits = self._forward(params, tokens, frontend_embed, quant=quant,
+                               remat=remat)
+        if frontend_embed is not None:
+            logits = logits[:, frontend_embed.shape[1]:]
+        logits = logits.to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = (logz - gold).mean()
+        aux = getattr(self, "_last_aux", None)
+        if aux is not None:
+            nll = nll + 0.01 * aux["load_balance"] + 1e-3 * aux["router_z"]
+        return nll
+
+    def param_tree(self) -> Dict[str, Any]:
+        """The weights as nested dicts and lists of tensors (detached,
+        sharing storage with the module's), the params of a train step."""
+        return self._weights().tree()
 
     @property
     def supports_paged(self) -> bool:

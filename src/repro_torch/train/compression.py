@@ -1,0 +1,62 @@
+"""SIRA-flavored scaled-integer gradient compression with error feedback.
+
+The paper's core representation — a tensor as (integer payload, scale) —
+applied to the distributed-training communication layer: gradients are
+quantized to int8 with a per-tensor scale before the all-reduce, an
+8/32 wire-byte reduction; the residual quantization error is carried to
+the next step (error feedback), which is what keeps SGD/Adam convergence
+intact (Karimireddy et al., 2019).
+
+Counterpart of ``src/repro/train/compression.py``.  ``torch.round``
+rounds half to even like ``jnp.round``, so the int8 payload equals the
+reference's bit for bit.  ``compressed_psum``, the reference's
+``shard_map`` collective, waits for the port's ``torch.distributed``
+layout (ROADMAP A11) and raises.
+"""
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+
+from ..tree import flatten, leaves, tree_map, unflatten
+
+
+def quantize_tensor(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 quantization → (payload, scale)."""
+    amax = torch.max(torch.abs(g))
+    scale = torch.clamp(amax / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_tensor(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def compress_grads(grads: Any, error_feedback: Any) -> Tuple[Any, Any]:
+    """Quantize (grads + carried error) to int8; return (dequantized
+    grads, new error feedback)."""
+    def one(g, e):
+        g32 = g.to(torch.float32) + e
+        q, s = quantize_tensor(g32)
+        deq = dequantize_tensor(q, s)
+        return deq, g32 - deq
+
+    flat_g, spec = flatten(grads)
+    outs = [one(g, e) for g, e in zip(flat_g, leaves(error_feedback))]
+    return (unflatten(spec, [o[0] for o in outs]),
+            unflatten(spec, [o[1] for o in outs]))
+
+
+def init_error_feedback(grads_like: Any) -> Any:
+    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                          device=g.device), grads_like)
+
+
+def compressed_psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """The reference's int8-payload all-reduce over a mesh axis (inside
+    ``shard_map``) has no counterpart yet."""
+    raise NotImplementedError(
+        "compressed_psum is not ported yet: it waits for the port's "
+        "torch.distributed layout (ROADMAP A11, launch/)")

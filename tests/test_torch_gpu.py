@@ -1,7 +1,8 @@
 """Tests that need a CUDA device: each hand-written kernel against its
 plain PyTorch version, compiled models (interval- and affine-proven
-plans) against the numpy interpreter, and a reduced LM prefill through
-the flash-attention kernel, on the card.  They skip elsewhere (decided
+plans) against the numpy interpreter, a reduced LM prefill through
+the flash-attention kernel, and accumulator-aware QAT (training, resume,
+the exported model through the kernels), on the card.  They skip elsewhere (decided
 inside each test, never at import).  This file imports neither ``jax``
 nor ``repro``, so it runs on a machine that has only the port's
 dependencies:
@@ -27,6 +28,9 @@ from repro_torch.kernels.int_matmul import ROUTES, TENSOR_CORES, k_major
 from repro_torch.kernels.multithreshold import ROUTES as MT_ROUTES
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import attention as attn_mod, get_model
+from repro_torch.qat import (QATConfig, check_budget_invariant,
+                             proven_layer_bits, run_qat)
+from repro_torch.tree import leaves
 
 NEEDS_CARD = "needs a CUDA device (the kernels have no CPU mode)"
 
@@ -429,3 +433,119 @@ def test_bf16_lm_prefill_launches_the_kernel_once_per_layer():
     assert got.dtype == torch.bfloat16
     assert got.shape == (2, 70, cfg.vocab_padded)
     assert bool(torch.isfinite(got[..., :cfg.vocab]).all())
+
+
+def _within_caps(model, params) -> bool:
+    for i, (layer, budget) in enumerate(zip(params["layers"],
+                                            model.budgets())):
+        v = layer["W"].double().cpu().numpy() / model.w_scales[i]
+        cap_pos, cap_neg = budget.caps()
+        if cap_neg >= 0:
+            ok = (np.maximum(v, 0).sum(0) <= cap_pos + 1e-3).all() and \
+                (np.maximum(-v, 0).sum(0) <= cap_neg + 1e-3).all()
+        else:
+            ok = (np.abs(v).sum(0) <= cap_pos + 1e-3).all()
+        if not ok:
+            return False
+    return True
+
+
+@pytest.mark.gpu
+def test_qat_trains_on_the_card_within_its_caps():
+    """Ten QAT steps on the card: every param and master on CUDA, every
+    loss finite, params and masters inside each layer's caps."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    res = run_qat(QATConfig(budget=12, steps=10, hidden=(32, 32), seed=0),
+                  device="cuda")
+    state = res.state
+    assert all(t.is_cuda for t in leaves((state.params, state.opt.master,
+                                          state.opt.m, state.opt.v)))
+    assert len(res.losses) == 10 and np.isfinite(res.losses).all()
+    assert _within_caps(res.model, state.params)
+    assert _within_caps(res.model, state.opt.master)
+
+
+@pytest.mark.gpu
+def test_qat_resume_on_the_card_is_bit_exact(tmp_path, monkeypatch):
+    """Six steps straight equal three, a kill after the step-3
+    checkpoint and a resume in fresh objects, under deterministic
+    algorithms (a nondeterministic op raises instead of passing by
+    luck)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    import shutil
+    # cuBLAS refuses deterministic mode without a fixed workspace
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg = QATConfig(budget=12, steps=6, hidden=(32, 32), seed=1,
+                        ckpt_dir=str(tmp_path / "a"), ckpt_every=3)
+        straight = run_qat(cfg, device="cuda")
+        (tmp_path / "b").mkdir()
+        shutil.copy(tmp_path / "a" / "ckpt_00000003.npz", tmp_path / "b")
+        resumed = run_qat(dataclasses.replace(cfg,
+                                              ckpt_dir=str(tmp_path / "b")),
+                          device="cuda")
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert resumed.resumed_from == 3
+    for a, b in zip(leaves((straight.state.params, straight.state.opt)),
+                    leaves((resumed.state.params, resumed.state.opt))):
+        assert a.device == b.device and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_exported_qat_model_on_the_card_is_bit_exact():
+    """A QAT model trained on the card, exported and built, compiled for
+    the card in float64: its integer tensors equal the numpy interpreter
+    on a batch of its own inputs, through the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    res = run_qat(QATConfig(budget=12, steps=10, hidden=(32, 32), seed=0),
+                  device="cuda")
+    result, bits = proven_layer_bits(res.model, res.state.params)
+    check_budget_invariant(res.model, res.state.params, bits)
+    model = result.model
+    compiled = model.compile(dtype=torch.float64)
+    assert compiled.device.type == "cuda"
+    compiled = model.compile(dtype=torch.float64,
+                             extra_outputs=compiled.int_tensors)
+    x = res.model.synth_batch(1000, 256)["tokens"].astype(np.float64)
+    want = model.execute({"X": x}, record_all=True)
+    _build.reset_launch_counts()
+    got = compiled({"X": x})
+    assert all(_build.LAUNCH_COUNTS[k] > 0
+               for k in ("int_matmul", "multithreshold", "quantize"))
+    for t in compiled.int_tensors:
+        np.testing.assert_array_equal(got[t].astype(np.float64), want[t])
+
+
+@pytest.mark.gpu
+def test_lm_loss_on_the_card_raises_without_a_backward_kernel():
+    """No plain-attention fallback on CUDA: a loss that needs a gradient
+    reaches the flash-attention wrapper, which raises until the backward
+    kernel exists (ROADMAP B4)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    model = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    params = model.param_tree()
+    params["layers"][0]["attn"]["wq"] = \
+        params["layers"][0]["attn"]["wq"].clone().requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab, (2, 16), device="cuda")
+    _build.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="B4"):
+        model.loss(params, toks, toks)
+    assert _build.LAUNCH_COUNTS["flash_attention"] == 0
+
+
+def test_run_qat_without_a_card_raises():
+    """``device=None`` means the card: on a machine without one,
+    ``run_qat`` raises instead of training on the CPU.  (It needs no
+    card, so it has no ``gpu`` marker; with a card it skips.)"""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None trains on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_qat(QATConfig(steps=1))

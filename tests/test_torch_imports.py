@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` (and ``chip_smoke.py``) import
 neither ``jax`` nor the JAX package ``repro``, proven in a fresh process
 that runs the port's QNN main path (affine domain, dataflow steps), the
-fuzzer and one reduced LM prefill, and by a scan of the sources."""
+fuzzer, one reduced LM prefill and three QAT steps with their export, and
+by a scan of the sources."""
 import pathlib
 import re
 import subprocess
@@ -38,6 +39,12 @@ lm = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
 logits = lm(torch.randint(0, cfg.vocab, (2, 40)))
 assert logits.shape == (2, 40, cfg.vocab_padded)
 assert bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+import repro_torch.optim, repro_torch.train, repro_torch.data
+from repro_torch.qat import QATConfig, proven_layer_bits, run_qat
+res = run_qat(QATConfig(budget=12, steps=3, hidden=(8,)), device="cpu")
+assert len(res.losses) == 3 and np.isfinite(res.losses).all()
+_, bits = proven_layer_bits(res.model, res.state.params)
+assert max(bits) <= 12
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED=" + ",".join(bad))
