@@ -6,7 +6,7 @@ Run from the repository root, no arguments, one card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
-use), then runs eight phases and prints one JSON object per line:
+use), then runs nine phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds,
                the HGMMA (16-bit wgmma) instructions of flash_attention
@@ -85,6 +85,24 @@ use), then runs eight phases and prints one JSON object per line:
                than 1.5x the logits through the plain attention; ms per
                prefill, tokens/s and peak memory at B=4, S=2048 and B=1,
                S=32768
+  lm_families  the MoE, Mamba2 and Zamba2 families at their published
+               widths with seeded random weights: granite-moe-3b-a800m,
+               qwen2-moe-a2.7b, mamba2-780m and zamba2-2.7b.  float32,
+               B=1, S=512 (two SSD chunks), MoE at no-drop capacity:
+               logits with the flash-attention kernel against plain
+               attention (1e-4 of the logit scale), ``decode_step`` over
+               all 512 positions against ``forward`` (1e-3), 32 / 4 / 0 /
+               9 launches per forward (qwen2-moe at 4 of its 24 layers,
+               the one cut); MoE routing is logged, and a float32 near-tie
+               that flips an expert between two runs must be one (margin
+               < 1e-5) and ends the positions compared.  One MoE layer
+               at capacity 1.25, B=1, S=2048, against the float64
+               no-dispatch oracle (1e-4 of max|y|), with its share of
+               dropped slots.  bfloat16: at B=1, S=2048 the logits
+               against a float32 forward of the same weights (no further
+               than 1.5x the plain attention's; mamba2 reports its
+               distance), prefills timed at B=4, S=2048 and, for the
+               long-context configs mamba2 and zamba2, B=1, S=32768
 
 then a ``{"kernels": [...]}`` line (per kernel: launches on its path and
 on each phase's path,
@@ -139,6 +157,8 @@ from repro_torch.kernels.flash_attention import (            # noqa: E402
     flash_attention_fwd, tolerance as fa_tolerance)
 from repro_torch.kernels.ref import flash_attention_ref      # noqa: E402
 from repro_torch.models import attention as lm_attention     # noqa: E402
+from repro_torch.models import moe as lm_moe                 # noqa: E402
+from repro_torch.models.convert import ParamTree             # noqa: E402
 from repro_torch.models import get_model                     # noqa: E402
 from repro_torch.obs.trace import (Tracer, get_tracer,       # noqa: E402
                                    set_tracer)
@@ -168,6 +188,31 @@ FA_LAYER = dict(B=1, S=4096, H=12, KV=2, hd=128)
 LM_F32 = (1, 1024)                        # (B, S) of the float32 checks
 LM_BF16_CHECK = (1, 2048)                 # (B, S) of the bfloat16 check
 LM_BF16 = ((4, 2048, 3), (1, 32768, 2))   # (B, S, timed calls), bfloat16
+
+# the lm_families slice: the MoE, Mamba2 and Zamba2 configs at their
+# published widths, and the flash_attention launches of one forward
+FAMILY_WIDTHS = {
+    "granite-moe-3b-a800m": dict(n_layers=32, d_model=1536, n_heads=24,
+                                 n_kv_heads=8, vocab=49155,
+                                 moe=(40, 8, 0, 512), launches=32),
+    "qwen2-moe-a2.7b": dict(n_layers=24, d_model=2048, n_heads=16,
+                            n_kv_heads=16, vocab=151936,
+                            moe=(60, 4, 4, 1408), launches=24),
+    "mamba2-780m": dict(n_layers=48, d_model=1536, n_heads=0, n_kv_heads=0,
+                        vocab=50280, ssm=(128, 64, 2), launches=0),
+    "zamba2-2.7b": dict(n_layers=54, d_model=2560, n_heads=32,
+                        n_kv_heads=32, vocab=32000, ssm=(64, 64, 2),
+                        attn_every=6, launches=9),
+}
+# the one cut: qwen2-moe's float32 checks run at 4 of its 24 layers (a
+# float32 copy of all 24 next to the bf16 weights would take ~86 GB)
+FAMILY_F32_LAYERS = {"qwen2-moe-a2.7b": 4}
+FAMILY_F32 = (1, 512)          # (B, S): two 256-token SSD chunks
+FAMILY_ORACLE = (1, 2048)      # (B, S) of the MoE dispatch check
+FAMILY_BF16 = (4, 2048, 3)     # (B, S, timed calls), bfloat16
+FAMILY_LONG = (1, 32768, 2)    # the same, supports_long_context configs
+# two router probabilities closer than this are a tie to float32 rounding
+ROUTING_TIE = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -572,7 +617,7 @@ def flash_err(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor,
 # (name, B, Sq, Sk, H, KV, hd, keywords): each in float32, bfloat16 and
 # float16; the CPU tests' grid (the reference's own kernel test), then
 # ragged lengths, window, q_offset, cap, masked rows, non-causal, hd 16 to
-# 256, a chunked prefill
+# 256, a chunked prefill, the MoE and hybrid configs' layer shapes
 FA_GRID = [
     ("gqa", 2, 128, 128, 4, 2, 64, {}),
     ("cap", 1, 256, 256, 8, 8, 64, dict(logit_cap=50.0)),
@@ -590,6 +635,11 @@ FA_GRID = [
     ("hd 128", 2, 200, 200, 12, 2, 128, {}),
     ("hd 64", 1, 150, 150, 4, 2, 64, {}),
     ("chunked prefill", 1, 1000, 3048, 12, 2, 128, dict(q_offset=2048)),
+    # the lm_families slice's attention shapes; hd 80 is a partial second
+    # 64-column TMA chunk of the 128-wide tensor-core kernel
+    ("zamba2 hd 80", 1, 300, 300, 32, 32, 80, {}),
+    ("qwen2-moe", 1, 256, 256, 16, 16, 128, {}),
+    ("granite-moe", 1, 256, 256, 24, 8, 64, {}),
 ]
 
 
@@ -1494,77 +1544,150 @@ def lm_tokens(cfg, B, S):
     return torch.randint(0, cfg.vocab, (B, S), generator=gen, device=DEV)
 
 
-def lm_float32_checks(cfg) -> dict:
-    """float32 at ``LM_F32``: kernel against plain attention, decode
-    against prefill.  Tolerances relative to the logit scale: 1e-4 for the
+@contextlib.contextmanager
+def routing_log():
+    """Record every MoE layer's routing, in call order: its expert ids
+    (sorted per token) and the top-(k+1) router probabilities."""
+    log, route = [], lm_moe.route
+
+    def recorded(params, x, **kw):
+        r = route(params, x, **kw)
+        k = r.gate_idx.shape[-1]
+        log.append((r.gate_idx.sort(dim=-1).values,
+                    r.probs.topk(k + 1, dim=-1).values))
+        return r
+    lm_moe.route = recorded
+    try:
+        yield log
+    finally:
+        lm_moe.route = route
+
+
+def routing_by_layer(log, n_layers):
+    """A forward's log (one (B, S, .) entry per layer) or a decode's (one
+    (B, 1, .) entry per step and layer) → ids, top (n_layers, B, S, .)."""
+    steps = len(log) // n_layers
+    return tuple(torch.stack([torch.cat([log[t * n_layers + i][j]
+                                         for t in range(steps)], dim=1)
+                              for i in range(n_layers)]) for j in (0, 1))
+
+
+def first_routing_flip(ref_log, log, n_layers, S) -> tuple:
+    """(first position whose routing differs between the two runs in any
+    layer, or S; tokens and layers that differ).  Two float32 runs that
+    sum in other orders may flip the k-th and (k+1)-th expert of a token
+    whose two probabilities tie to rounding; every flip must be such a
+    near-tie (margin < ROUTING_TIE), and positions from the first flip on
+    are then not compared (a flip changes that token's expert output and,
+    through attention, every later position; never an earlier one)."""
+    if not ref_log:
+        return S, 0
+    ids_a, top_a = routing_by_layer(ref_log, n_layers)
+    ids_b, _ = routing_by_layer(log, n_layers)
+    diff = (ids_a != ids_b).any(dim=-1)               # (layers, B, S)
+    if not bool(diff.any()):
+        return S, 0
+    margin = float((top_a[..., -2] - top_a[..., -1])[diff].max())
+    check(margin < ROUTING_TIE, f"routing differs where the k-th and "
+                                f"(k+1)-th probabilities are {margin} "
+                                f"apart: not a near-tie")
+    return int(diff.any(dim=0).any(dim=0).nonzero()[0]), int(diff.sum())
+
+
+def lm_float32_checks(model, B, S) -> dict:
+    """float32 at B x S: kernel against plain attention, decode against
+    prefill.  Tolerances relative to the logit scale: 1e-4 for the
     attention route (float32 sums in another order), 1e-3 for decode (the
     reference's own test allows rtol 1e-3: every product has other shapes
-    and so other cuBLAS reductions)."""
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    model = lm_model(cfg32)
-    B, S = LM_F32
+    and so other cuBLAS reductions).  MoE layers log their routing, and
+    a near-tie that flips between two runs ends the positions compared
+    (``first_routing_flip``)."""
+    cfg = model.cfg
     toks = lm_tokens(cfg, B, S)
     V = cfg.vocab
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     before = _build.LAUNCH_COUNTS["flash_attention"]
-    got = model(toks)
+    with routing_log() as log_k:
+        got = model(toks)
     peak = torch.cuda.max_memory_allocated()
     launches = _build.LAUNCH_COUNTS["flash_attention"] - before
-    check(launches == cfg.n_layers,
+    check(launches == attn_launches(cfg),
           f"float32 forward launched flash_attention {launches} times, "
-          f"not once per layer ({cfg.n_layers})")
+          f"not {attn_launches(cfg)}")
     check(got.shape == (B, S, cfg.vocab_padded)
           and bool(torch.isfinite(got[..., :V]).all()),
           "float32 logits: wrong shape or not finite")
-    with plain_attention():
-        want = model(toks)
-    scale = float(want[..., :V].abs().max())
-    err = float((got[..., :V] - want[..., :V]).abs().max())
-    check(err <= 1e-4 * scale, f"float32 logits: kernel vs plain attention "
-                               f"{err} > 1e-4 * {scale}")
-    del want
+    out = dict(dtype="float32", B=B, S=S, launches_per_forward=launches)
+    scale = float(got[..., :V].abs().max())
+    if launches:
+        with plain_attention(), routing_log() as log_p:
+            want = model(toks)
+        n, flips = first_routing_flip(log_k, log_p, cfg.n_layers, S)
+        scale = float(want[..., :V].abs().max())
+        err = float((got[:, :n, :V] - want[:, :n, :V]).abs().max())
+        check(err <= 1e-4 * scale, f"float32 logits: kernel vs plain "
+                                   f"attention {err} > 1e-4 * {scale}")
+        out.update(kernel_vs_plain_max_abs_err=err,
+                   kernel_vs_plain_positions=n,
+                   kernel_vs_plain_routing_flips=flips)
+        del want
     t0 = time.perf_counter()
     cache = model.init_cache(B, S)
-    dec_err = 0.0
-    for t in range(S):
-        lg, cache = model.decode_step(toks[:, t:t + 1], cache, t)
-        dec_err = max(dec_err, float((lg[:, 0, :V] - got[:, t, :V])
-                                     .abs().max()))
+    err = torch.zeros((B, S), device=DEV)
+    with routing_log() as log_d:
+        for t in range(S):
+            lg, cache = model.decode_step(toks[:, t:t + 1], cache, t)
+            err[:, t] = (lg[:, 0, :V] - got[:, t, :V]).abs().amax(dim=-1)
+    torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    n, flips = first_routing_flip(log_k, log_d, cfg.n_layers, S)
+    dec_err = float(err[:, :n].max())
     check(dec_err <= 1e-3 * scale, f"decode_step vs forward {dec_err} > "
                                    f"1e-3 * {scale}")
-    del model, cache, got, lg
+    del cache, got, lg
     torch.cuda.empty_cache()
-    return dict(dtype="float32", B=B, S=S, launches_per_forward=launches,
-                logit_scale=scale, kernel_vs_plain_max_abs_err=err,
-                decode_vs_forward_max_abs_err=dec_err,
-                decode_all_steps_s=decode_s,
-                memory_allocated_before=resident, max_memory_allocated=peak)
+    out.update(logit_scale=scale, decode_vs_forward_max_abs_err=dec_err,
+               decode_vs_forward_positions=n,
+               decode_vs_forward_routing_flips=flips,
+               decode_all_steps_s=decode_s,
+               memory_allocated_before=resident, max_memory_allocated=peak)
+    return out
 
 
-def lm_bf16_accuracy(model, cfg) -> dict:
+def attn_launches(cfg) -> int:
+    """flash_attention launches per forward: one per attention layer; the
+    hybrid applies its one shared block after every ``attn_every``
+    Mamba2 layers, and Mamba2 has none."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+def lm_bf16_accuracy(model, cfg, truth_params=None) -> dict:
     """bfloat16 at ``LM_BF16_CHECK``: the truth is a float32 forward of a
-    float32 copy of the bf16 model's own weights.  The bf16 logits through
-    the kernel must lie no further from it than 1.5x the bf16 logits
-    through the plain attention (which rounds nothing inside attention):
-    the kernel's rounding of P may add to the error of a bf16 forward, but
-    must not dominate it."""
+    float32 copy of the bf16 model's own weights (``truth_params`` when the
+    caller holds one).  The bf16 logits through the kernel must lie no
+    further from it than 1.5x the bf16 logits through the plain attention
+    (which rounds nothing inside attention): the kernel's rounding of P
+    may add to the error of a bf16 forward, but must not dominate it.  A
+    model without attention (Mamba2) reports its distance, finite."""
     B, S = LM_BF16_CHECK
     toks = lm_tokens(cfg, B, S)
     V = cfg.vocab
     ref = get_model(dataclasses.replace(cfg, dtype=torch.float32))
-    ref.params = copy.deepcopy(model.params).to(torch.float32)
+    ref.params = truth_params if truth_params is not None else \
+        copy.deepcopy(model.params).to(torch.float32)
     truth = ref(toks)[..., :V]
     del ref
     before = _build.LAUNCH_COUNTS["flash_attention"]
     got = model(toks)[..., :V]
     launches = _build.LAUNCH_COUNTS["flash_attention"] - before
-    check(launches == cfg.n_layers,
+    check(launches == attn_launches(cfg),
           f"bf16 B={B} S={S}: {launches} flash_attention launches, not "
-          f"{cfg.n_layers}")
-    with plain_attention():
-        plain = model(toks)[..., :V]
+          f"{attn_launches(cfg)}")
     scale = float(truth.abs().max())
 
     def dist(x):
@@ -1572,19 +1695,24 @@ def lm_bf16_accuracy(model, cfg) -> dict:
         return float(d.abs().max()) / scale, \
             float(d.square().mean().sqrt()) / scale
     kernel_max, kernel_rms = dist(got)
-    plain_max, plain_rms = dist(plain)
     check(bool(torch.isfinite(got).all()), "bf16 logits are not finite")
-    check(kernel_max <= 1.5 * plain_max,
-          f"bf16 logits through the kernel {kernel_max} of the logit scale "
-          f"from the float32 truth, > 1.5 x the plain attention's "
-          f"{plain_max}")
-    del truth, got, plain
+    out = dict(dtype="bfloat16", B=B, S=S, check="vs float32 forward of "
+               "the same weights", logit_scale=scale,
+               kernel_max_rel_err=kernel_max, kernel_rms_rel_err=kernel_rms,
+               launches_per_forward=launches)
+    if launches:
+        with plain_attention():
+            plain = model(toks)[..., :V]
+        plain_max, plain_rms = dist(plain)
+        check(kernel_max <= 1.5 * plain_max,
+              f"bf16 logits through the kernel {kernel_max} of the logit "
+              f"scale from the float32 truth, > 1.5 x the plain "
+              f"attention's {plain_max}")
+        out.update(plain_max_rel_err=plain_max, plain_rms_rel_err=plain_rms)
+        del plain
+    del truth, got
     torch.cuda.empty_cache()
-    return dict(dtype="bfloat16", B=B, S=S, check="vs float32 forward of "
-                "the same weights", logit_scale=scale,
-                kernel_max_rel_err=kernel_max, plain_max_rel_err=plain_max,
-                kernel_rms_rel_err=kernel_rms, plain_rms_rel_err=plain_rms,
-                launches_per_forward=launches)
+    return out
 
 
 def lm_bf16_run(model, cfg, B, S, reps) -> dict:
@@ -1595,9 +1723,9 @@ def lm_bf16_run(model, cfg, B, S, reps) -> dict:
     out = model(toks)                              # warm-up and checks
     peak = torch.cuda.max_memory_allocated()       # before the checks
     launches = _build.LAUNCH_COUNTS["flash_attention"] - before
-    check(launches == cfg.n_layers,
+    check(launches == attn_launches(cfg),
           f"bf16 B={B} S={S}: {launches} flash_attention launches, not "
-          f"{cfg.n_layers}")
+          f"{attn_launches(cfg)}")
     check(out.shape == (B, S, cfg.vocab_padded) and out.dtype ==
           torch.bfloat16 and bool(torch.isfinite(out[..., :cfg.vocab]).all())
           and bool((out[..., cfg.vocab:] == -1e30).all()),
@@ -1622,7 +1750,9 @@ def phase_lm_prefill() -> dict:
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
            cfg.vocab_padded) == (28, 1536, 12, 2, 8960, 152064),
           f"{LM_ARCH} is not at its published width")
-    runs = [lm_float32_checks(cfg)]
+    runs = [lm_float32_checks(
+        lm_model(dataclasses.replace(cfg, dtype=torch.float32)), *LM_F32)]
+    torch.cuda.empty_cache()
     model = lm_model(cfg)
     runs.append(lm_bf16_accuracy(model, cfg))
     runs += [lm_bf16_run(model, cfg, B, S, reps) for B, S, reps in LM_BF16]
@@ -1630,6 +1760,118 @@ def phase_lm_prefill() -> dict:
     torch.cuda.empty_cache()
     return dict(phase="lm_prefill", arch=LM_ARCH, seed=LM_SEED,
                 params=cfg.param_count(), runs=runs,
+                note="ms_per_prefill: host clock around forward calls "
+                     "ended by a synchronize, after one warm call",
+                launches=dict(flash_attention=_build.LAUNCH_COUNTS[
+                    "flash_attention"]))
+
+
+# --------------------------------------------------------------------------
+# phase: lm_families — MoE, Mamba2 and the Zamba2 hybrid at full width
+# --------------------------------------------------------------------------
+
+def check_widths(cfg, want: dict) -> None:
+    got = dict(n_layers=cfg.n_layers, d_model=cfg.d_model,
+               n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+               vocab=cfg.vocab, launches=attn_launches(cfg))
+    if cfg.family == "moe":
+        m = cfg.moe
+        got["moe"] = (m.n_experts, m.top_k, m.n_shared, m.d_expert)
+    else:
+        got["ssm"] = (cfg.ssm.d_state, cfg.ssm.head_dim, cfg.ssm.expand)
+    if cfg.family == "hybrid":
+        got["attn_every"] = cfg.attn_every
+    check(got == want, f"{cfg.name} is not at its published width: {got}")
+
+
+def first_layers(params, n: int) -> ParamTree:
+    """A ParamTree of ``params``'s embedding, head, norms and first ``n``
+    layers, sharing their storage."""
+    tree = params.tree()
+    tree["layers"] = tree["layers"][:n]
+    return ParamTree(tree)
+
+
+def moe_dispatch_check(layer, cfg) -> dict:
+    """One full-width MoE layer (float32 weights) at the published
+    capacity, B x S = ``FAMILY_ORACLE``: ``apply_moe`` (queue ranks,
+    dispatch into (B, E, C, d), batched experts, gather) against
+    ``apply_moe_direct`` (float64, each expert on its own tokens, no
+    dispatch) with the same routing and keep mask, within 1e-4 of max|y|:
+    a dispatch fault moves a token's output by O(1).  The input is normal
+    noise plus one direction all tokens share (half its rms), as a
+    residual stream has: it makes some experts popular, so slots are
+    dropped (iid noise alone spreads 2048 tokens below the capacity)."""
+    B, S = FAMILY_ORACLE
+    gen = torch.Generator(device=DEV).manual_seed(LM_SEED + 2)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=DEV) + \
+        0.5 * torch.randn((cfg.d_model,), generator=gen, device=DEV)
+    kw = dict(top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor)
+    r = lm_moe.route(layer, x, **kw)
+    y, _ = lm_moe.apply_moe(layer, x, act=cfg.mlp_act, **kw)
+    want = lm_moe.apply_moe_direct(layer, x, r, act=cfg.mlp_act)
+    scale = float(want.abs().max())
+    err = float((y.double() - want).abs().max())
+    check(bool(torch.isfinite(y).all()) and err <= 1e-4 * scale,
+          f"{cfg.name}: apply_moe vs the no-dispatch oracle {err} > 1e-4 * "
+          f"{scale}")
+    dropped = float(1.0 - r.in_cap.float().mean())
+    check(dropped > 0, f"{cfg.name}: no slot dropped at capacity {r.C}")
+    return dict(B=B, S=S, capacity_factor=cfg.moe.capacity_factor,
+                capacity=r.C, dropped_slot_share=dropped, max_abs_err=err,
+                y_scale=scale)
+
+
+def lm_family(arch: str) -> dict:
+    """One config: float32 checks at ``FAMILY_F32`` (at no-drop capacity
+    for MoE, as the reference's decode test), the MoE dispatch against
+    its oracle, the bf16 logits against a float32 forward of the same
+    weights, and bf16 prefills timed.  The float32 model is a float32 copy
+    of the bf16 model's weights (its first ``FAMILY_F32_LAYERS`` layers
+    where cut)."""
+    cfg = get_config(arch)
+    check_widths(cfg, FAMILY_WIDTHS[arch])
+    model = lm_model(cfg)
+    cut = FAMILY_F32_LAYERS.get(arch, cfg.n_layers)
+    cfg_cut = dataclasses.replace(cfg, n_layers=cut)
+    p32 = first_layers(model.params, cut).to(torch.float32)
+    cfg32 = dataclasses.replace(cfg_cut, dtype=torch.float32)
+    if cfg.family == "moe":
+        cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    m32 = get_model(cfg32)
+    m32.params = p32
+    out = dict(arch=arch, family=cfg.family, params=cfg.param_count(),
+               float32_layers=cut,
+               float32=lm_float32_checks(m32, *FAMILY_F32))
+    del m32
+    if cfg.family == "moe":
+        out["dispatch"] = moe_dispatch_check(p32.layers[0].moe, cfg)
+    m16 = model
+    if cut != cfg.n_layers:
+        m16 = get_model(cfg_cut)
+        m16.params = first_layers(model.params, cut)
+    out["bfloat16_check"] = lm_bf16_accuracy(m16, cfg_cut, truth_params=p32)
+    del m16, p32
+    torch.cuda.empty_cache()
+    runs = [FAMILY_BF16] + ([FAMILY_LONG] if cfg.supports_long_context
+                            else [])
+    out["runs"] = [lm_bf16_run(model, cfg, B, S, reps)
+                   for B, S, reps in runs]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_families() -> dict:
+    t0 = time.perf_counter()
+    # counts to 0 just before this path, read just after
+    _build.reset_launch_counts()
+    archs = [lm_family(arch) for arch in FAMILY_WIDTHS]
+    return dict(phase="lm_families", seed=LM_SEED, archs=archs,
+                seconds=time.perf_counter() - t0,
+                cut="qwen2-moe-a2.7b: float32 checks and the bf16 check at "
+                    "4 of its 24 layers; everything else at full depth",
                 note="ms_per_prefill: host clock around forward calls "
                      "ended by a synchronize, after one warm call",
                 launches=dict(flash_attention=_build.LAUNCH_COUNTS[
@@ -1668,9 +1910,12 @@ def main() -> None:
     emit(qat)
     times = phase_kernel_times(main_path["configs"])
     emit(times)
-    lm = phase_lm_prefill()           # last: it holds the card's memory
-    emit(lm)
+    lm = phase_lm_prefill()           # last two: they hold the card's
+    emit(lm)                          # memory
+    fam = phase_lm_families()
+    emit(fam)
     launches = dict(main_path["launches"], **lm["launches"])
+    launches["flash_attention"] += fam["launches"]["flash_attention"]
     kernels = []
     for name, meta in KERNEL_META.items():
         t = times[name][0]
@@ -1682,7 +1927,8 @@ def main() -> None:
                 main_path=main_path["launches"].get(name, 0),
                 sira_flow=sira["launches"].get(name, 0),
                 qat_chain=qat["launches"].get(name, 0),
-                lm_prefill=lm["launches"].get(name, 0)),
+                lm_prefill=lm["launches"].get(name, 0),
+                lm_families=fam["launches"].get(name, 0)),
             max_abs_err=grid[name]["max_abs_err"], ms=t["ms"],
             wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],

@@ -3,9 +3,13 @@ package, and hold parameters as an ``nn.Module``.
 
 The reference keeps parameters as a pytree: nested dicts, repeated layers
 stacked on axis 0 (``src/repro/models/transformer.py Model.init``), gemma2
-as stacked ``{"local", "global"}`` pairs.  Here layers are a list, layer
-``2i`` of gemma2 being ``local[i]`` and ``2i + 1`` being ``global[i]``.
-The converter reads numpy arrays only (no import of the reference).
+as stacked ``{"local", "global"}`` pairs, the hybrid's Mamba2 layers
+stacked on (n_groups, attn_every).  Here layers are a list: layer ``2i``
+of gemma2 is ``local[i]`` and ``2i + 1`` is ``global[i]``; the hybrid's
+layer ``g·attn_every + j`` is ``layers[g][j]``.  MoE's expert arrays lose
+the reference's pad experts (never routed to): the port keeps
+``n_experts``.  The converter reads numpy arrays only (no import of the
+reference).
 """
 from __future__ import annotations
 
@@ -72,18 +76,21 @@ def _flatten(prefix: str, node: Any, out: Dict[str, torch.Tensor]) -> None:
         out[prefix] = _tensor(node)
 
 
-def _layer(stacked: Any, i: int) -> Any:
+def _layer(stacked: Any, *i: int) -> Any:
     if isinstance(stacked, Mapping):
-        return {k: _layer(v, i) for k, v in stacked.items()}
+        return {k: _layer(v, *i) for k, v in stacked.items()}
     return np.asarray(stacked)[i]
 
 
 def load_reference_params(cfg, tree: Mapping[str, Any]
                           ) -> Dict[str, torch.Tensor]:
-    """The reference's param pytree (numpy leaves) of a dense/vlm/audio
-    ``cfg`` → a flat state dict (CPU tensors, dtypes kept) keyed like
-    ``Model.params``: ``embed``, ``final_norm``, ``lm_head`` (absent when
-    tied), ``layers.<i>.attn.wq``, ...; packed ``{q, s}`` weights become
+    """The reference's param pytree (numpy leaves) of ``cfg``, any family,
+    → a flat state dict (CPU tensors, dtypes kept: MoE's router and
+    Mamba2's ``A_log``/``D``/``dt_bias`` stay float32 in a bf16 model)
+    keyed like ``Model.params``: ``embed``, ``final_norm``, ``lm_head``
+    (absent when tied), ``layers.<i>.attn.wq``, ``layers.<i>.moe.experts
+    .w_gate`` ([:n_experts] of the reference's padded array),
+    ``shared_attn.attn.wq``, ...; packed ``{q, s}`` weights become
     ``<name>.q`` and ``<name>.s``."""
     out: Dict[str, torch.Tensor] = {}
     for key, val in tree.items():
@@ -94,9 +101,16 @@ def load_reference_params(cfg, tree: Mapping[str, Any]
         per = []
         for i in range(cfg.n_layers // 2):
             per += [_layer(layers["local"], i), _layer(layers["global"], i)]
+    elif cfg.family == "hybrid":
+        per = [_layer(layers, *divmod(i, cfg.attn_every))
+               for i in range(cfg.n_layers)]
     else:
         per = [_layer(layers, i) for i in range(cfg.n_layers)]
     for i, layer in enumerate(per):
+        if "moe" in layer:              # drop the pad experts
+            experts = layer["moe"]["experts"]
+            for k in experts:
+                experts[k] = experts[k][:cfg.moe.n_experts]
         _flatten(f"layers.{i}", layer, out)
     return out
 

@@ -1,7 +1,7 @@
 """Tests that need a CUDA device: each hand-written kernel against its
 plain PyTorch version, compiled models (interval- and affine-proven
-plans) against the numpy interpreter, a reduced LM prefill through
-the flash-attention kernel, and accumulator-aware QAT (training, resume,
+plans) against the numpy interpreter, reduced LM prefills (dense, MoE,
+Mamba2, Zamba2) through the flash-attention kernel, and accumulator-aware QAT (training, resume,
 the exported model through the kernels), on the card.  They skip elsewhere (decided
 inside each test, never at import).  This file imports neither ``jax``
 nor ``repro``, so it runs on a machine that has only the port's
@@ -12,6 +12,7 @@ dependencies:
 ``python3 chip_smoke.py`` makes the same comparisons at the main path's
 real shapes.
 """
+import copy
 import dataclasses
 
 import numpy as np
@@ -338,6 +339,11 @@ FLASH_CASES = {
     "hd 128 several tiles": (1, 150, 290, 2, 1, 128, dict(q_offset=140)),
     "hd 256": (1, 70, 70, 2, 1, 256, dict(logit_cap=30.0)),
     "hd 256 several tiles": (1, 140, 140, 2, 1, 256, dict(window=100)),
+    # the MoE and hybrid configs' layer shapes; hd 80 is a partial second
+    # 64-column chunk of the 128-wide tensor-core kernel
+    "zamba2 hd 80": (1, 300, 300, 32, 32, 80, {}),
+    "qwen2-moe": (1, 256, 256, 16, 16, 128, {}),
+    "granite-moe": (1, 256, 256, 24, 8, 64, {}),
 }
 FLASH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
                 "f16": torch.float16}
@@ -433,6 +439,39 @@ def test_bf16_lm_prefill_launches_the_kernel_once_per_layer():
     assert got.dtype == torch.bfloat16
     assert got.shape == (2, 70, cfg.vocab_padded)
     assert bool(torch.isfinite(got[..., :cfg.vocab]).all())
+
+
+FAMILY_LAUNCHES = {"granite-moe-3b-a800m": 2, "qwen2-moe-a2.7b": 2,
+                   "mamba2-780m": 0, "zamba2-2.7b": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(FAMILY_LAUNCHES))
+def test_family_on_the_card_matches_the_cpu(arch):
+    """A reduced MoE, Mamba2 or Zamba2 model on the card against the same
+    weights on the CPU: prefill logits within 1e-4 of their scale, with
+    one flash_attention launch per attention layer (the hybrid's shared
+    block once per group, Mamba2 none), and 12 ``decode_step`` calls
+    within 1e-3 of it."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    cfg = get_config(arch, reduced=True)
+    cpu = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = get_model(cfg)
+    card.params = copy.deepcopy(cpu.params).to("cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    _build.reset_launch_counts()
+    got = card(toks.cuda())
+    assert _build.LAUNCH_COUNTS["flash_attention"] == FAMILY_LAUNCHES[arch]
+    want = cpu(toks)
+    scale = float(want[..., :cfg.vocab].abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * scale)
+    caches = card.init_cache(2, 12), cpu.init_cache(2, 12)
+    for t in range(12):
+        lg, _ = card.decode_step(toks[:, t:t + 1].cuda(), caches[0], t)
+        lc, _ = cpu.decode_step(toks[:, t:t + 1], caches[1], t)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-3 * scale)
 
 
 def _within_caps(model, params) -> bool:

@@ -2,12 +2,14 @@
 """Where the time and the memory of one LM prefill of the PyTorch/CUDA
 port go, on one NVIDIA GPU.
 
-    python3 tools/lm_prefill_profile.py
+    python3 tools/lm_prefill_profile.py [--arch NAME]
 
-It profiles the bfloat16 prefills that ``chip_smoke.py``'s ``lm_prefill``
-phase times: the same architecture (``LM_ARCH``, full width), weights,
-tokens and ``B x S`` runs (``LM_BF16``).  For each run it prints one JSON
-line:
+It profiles the bfloat16 prefills that ``chip_smoke.py`` times: the same
+architecture at full width (``--arch``, default ``LM_ARCH`` of the
+``lm_prefill`` phase; one of ``FAMILY_WIDTHS``, the MoE, Mamba2 and Zamba2
+configs of the ``lm_families`` phase), weights, tokens and ``B x S`` runs
+(``LM_BF16``; ``FAMILY_BF16``, and ``FAMILY_LONG`` where the config
+supports long contexts).  For each run it prints one JSON line:
 
   * ``memory``: bytes allocated before the call (the weights), the peak
     of one ``forward`` and the size of its logits;
@@ -16,13 +18,16 @@ line:
     ``torch.profiler``, beside the wall time of the same call (ended by a
     synchronize), the device's busy time (the union of the kernels'
     intervals) and its idle share of the wall time;
-  * ``top_kernels``: the ten kernels with the most device time.
+  * ``top_kernels``: the ten kernels with the most device time;
+  * ``top_ops``: the ten PyTorch operators (``aten::...``) whose kernels
+    take the most device time, with their calls.
 
 Then the ``nvidia-smi`` name and power limit.  Exits 2 without a CUDA
 device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import pathlib
 import subprocess
@@ -33,7 +38,9 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from chip_smoke import LM_ARCH, LM_BF16, lm_model, lm_tokens  # noqa: E402
+from chip_smoke import (FAMILY_BF16, FAMILY_LONG,             # noqa: E402
+                        FAMILY_WIDTHS, LM_ARCH, LM_BF16, lm_model,
+                        lm_tokens)
 from repro_torch.configs import get_config                     # noqa: E402
 
 
@@ -84,21 +91,32 @@ def profile(model, toks) -> dict:
             busy_us += e - max(s, end)
             end = e
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    ops = sorted(((getattr(a, "self_device_time_total", 0.0) / 1e3,
+                   a.count, a.key) for a in prof.key_averages()
+                  if getattr(a, "self_device_time_total", 0.0) > 0),
+                 reverse=True)[:10]
     return dict(memory=memory, wall_ms=wall_ms,
                 device_busy_ms=busy_us / 1e3,
                 idle_share=max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
                 kernels=len(spans), device_ms_by_family=by_family,
                 top_kernels=[dict(ms=ms, calls=n, name=k[:120])
-                             for k, (ms, n) in top])
+                             for k, (ms, n) in top],
+                top_ops=[dict(ms=ms, calls=n, op=k) for ms, n, k in ops])
 
 
 def main() -> None:
-    cfg = get_config(LM_ARCH)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=LM_ARCH,
+                    choices=[LM_ARCH] + list(FAMILY_WIDTHS))
+    arch = ap.parse_args().arch
+    cfg = get_config(arch)
     model = lm_model(cfg)
-    for B, S, _ in LM_BF16:
+    runs = LM_BF16 if arch == LM_ARCH else [FAMILY_BF16] + (
+        [FAMILY_LONG] if cfg.supports_long_context else [])
+    for B, S, _ in runs:
         with torch.no_grad():
             prof = profile(model, lm_tokens(cfg, B, S))
-        print(json.dumps(dict(arch=LM_ARCH, dtype=str(cfg.dtype), B=B, S=S,
+        print(json.dumps(dict(arch=arch, dtype=str(cfg.dtype), B=B, S=S,
                               **prof)), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
