@@ -6,7 +6,7 @@ Run from the repository root, no arguments, one card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
-use), then runs nine phases and prints one JSON object per line:
+use), then runs ten phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds,
                the HGMMA (16-bit wgmma) instructions of flash_attention
@@ -103,6 +103,38 @@ use), then runs nine phases and prints one JSON object per line:
                than 1.5x the plain attention's; mamba2 reports its
                distance), prefills timed at B=4, S=2048 and, for the
                long-context configs mamba2 and zamba2, B=1, S=32768
+  serve        the serving engine (``repro_torch.serve``) on qwen2-1.5b
+               at full width with seeded weights (after the earlier
+               phases' models are freed).  The SIRA KV spec: the default
+               (each layer's decision and reason) and the all-int8 one
+               the int8 pool uses (``max_step`` raised), its pool half
+               the bf16 pool.  float32: a 1024-token prompt through
+               ``decode_paged`` in chunks of 256 (page 16) and 64 tokens
+               one at a time against one ``Model.forward`` (1e-4 / 1e-3
+               of the logit scale with the fp pool; the int8 pool's
+               distance and top-1 agreement reported); six requests
+               (four, then two after 3 steps; 4 slots) batched, with
+               n-gram speculation, with a prefix cache over a shared
+               256-token prefix and with half the worst-case pool, fp and
+               int8 pools: every greedy stream equals the request served
+               alone but for one near-tie flip (top-2 logits of the
+               common prefix within 1e-5 of their scale), at least one
+               preemption, fewer prefill chunks with the prefix cache.
+               bfloat16, 8 slots, max_seq 4096: 16 requests (prompts
+               128-2048, 32-128 new tokens; eight, then eight after 3
+               steps) timed with the fp pool, the int8 pool, n-gram
+               speculation and a prefix cache (a shared 1024-token
+               prefix): the engine's metrics (tokens/s, TTFT p50/p99,
+               occupancy, acceptance, prefix hit rate), ms per decode
+               step at 8 active slots, ms per 256-token prefill chunk,
+               peak memory, the int8 streams' agreement with the fp ones,
+               and one decode step profiled (device ms by operator, idle
+               share).  Then mamba2-780m, float32, static mode: four
+               512-token prompts batched equal each served alone; a
+               mixed-length batch and paged mode refused.  No kernel of
+               this repo is on the serving path (paged attention is plain
+               PyTorch, as in the reference); flash_attention runs in the
+               ``Model.forward`` oracles
 
 then a ``{"kernels": [...]}`` line (per kernel: launches on its path and
 on each phase's path,
@@ -119,8 +151,10 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import importlib.util
 import json
+import math
 import os
 import pathlib
 import re
@@ -165,6 +199,9 @@ from repro_torch.obs.trace import (Tracer, get_tracer,       # noqa: E402
 from repro_torch.dataflow import compare_sira_vs_baseline  # noqa: E402
 from repro_torch.qat import (QATConfig, check_budget_invariant,  # noqa: E402
                              proven_layer_bits, run_qat)
+from repro_torch.serve import (KVCacheSpec, PagedKVCache,      # noqa: E402
+                               Request, ServingConfig, ServingEngine,
+                               derive_kv_spec)
 from repro_torch.tree import leaves                          # noqa: E402
 
 DEV = torch.device("cuda")
@@ -1879,6 +1916,543 @@ def phase_lm_families() -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase: serve — the serving engine, qwen2-1.5b at full width
+# --------------------------------------------------------------------------
+
+SERVE_PAGE = 16
+SERVE_CHUNK = 256
+SERVE_F32 = (1024, 64)          # paged vs forward: prompt, decoded tokens
+# the float32 invariants: (prompt, new tokens) per request, four first and
+# two after 3 steps; the prefix variant's suffixes after a shared prefix
+SERVE_INV = dict(batch_slots=4, max_seq=1024, prefill_chunk=SERVE_CHUNK,
+                 page_size=SERVE_PAGE)
+SERVE_INV_REQS = ((512, 32), (496, 32), (480, 24), (464, 28), (64, 20),
+                  (160, 16))
+SERVE_PREFIX = 256
+SERVE_PREFIX_REQS = ((200, 24), (40, 16), (120, 32), (8, 20), (256, 28),
+                     (64, 16))
+# static mode: (arch, requests, prompt, new tokens, layers), float32; the
+# one cut: 12 of mamba2's 48 layers (its host-bound decode step, ~48 ms at
+# full depth, would take ~120 s over the batched and the four solo runs)
+SERVE_STATIC = ("mamba2-780m", 4, 512, 32, 12)
+# bf16 serving, timed: 16 requests (prompt 128-2048, 32-128 new tokens),
+# eight first and eight after 3 steps; the prefix variant's shared prefix
+SERVE_BF16 = dict(batch_slots=8, max_seq=4096, prefill_chunk=SERVE_CHUNK,
+                  page_size=SERVE_PAGE)
+SERVE_BF16_N = 16
+SERVE_BF16_PREFIX = 1024
+# two top logits closer than this (of the logit scale) are a tie to
+# float32 rounding: the one divergence allowed between two streams
+STREAM_TIE = 1e-5
+# the seeded init with tied embeddings makes every position's own input
+# token win greedy decoding (its logit ~d against a spread of ~sqrt(d)),
+# so every stream would repeat its last prompt token and every stream check
+# would pass whatever attention did.  The serve phase multiplies each
+# layer's residual-branch outputs (wo, w_down) by this gain, reached in
+# steps of 4 with a probe at each (in the phase's line): on these seeded
+# weights no probe position predicts its own token at 256, but greedy
+# streams still sit on one token; from 1024 they move
+SERVE_BRANCH_GAIN = 1024.0
+SERVE_SELF_SHARE = 0.1     # at most this share of self-predictions then
+
+
+def serve_requests(vocab, lens, seed, prefix_len=0):
+    """Greedy requests of (prompt, new tokens) ``lens``, request_id the
+    index, with prompts drawn from ``seed`` after a shared prefix of
+    ``prefix_len`` tokens."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, size=(prefix_len,))
+    return [Request(prompt=np.concatenate(
+                        [prefix, rng.integers(0, vocab, size=(int(n),))]),
+                    max_new_tokens=int(m), request_id=i)
+            for i, (n, m) in enumerate(lens)]
+
+
+def paged_logits(model, spec, toks, n_prefill):
+    """Logits (S, V) of ``toks`` (S,) through ``decode_paged`` against a
+    fresh page pool of ``spec``: the first ``n_prefill`` tokens in chunks
+    of ``SERVE_CHUNK``, then one token per call."""
+    cfg, S = model.cfg, toks.shape[0]
+    cache = PagedKVCache(cfg, spec, 1, S, page_size=SERVE_PAGE, device=DEV)
+    check(cache.grow(0, S), "paged_logits: pool too small")
+    table, scales = cache.slot_table(0), spec.scales(DEV)
+    out = torch.empty((S, cfg.vocab), device=DEV)
+    with torch.inference_mode():
+        starts = list(range(0, n_prefill, SERVE_CHUNK)) + \
+            list(range(n_prefill, S))
+        for i, start in enumerate(starts):
+            end = starts[i + 1] if i + 1 < len(starts) else S
+            lg, _ = model.decode_paged(
+                toks[None, start:end], cache.pages, table,
+                torch.tensor([start], device=DEV), page_size=SERVE_PAGE,
+                kv_scales=scales)
+            out[start:end] = lg[0, :, :cfg.vocab].float()
+    return out
+
+
+def serve_paged_vs_forward(model, spec_i8) -> dict:
+    """float32: a ``SERVE_F32[0]``-token prompt through ``decode_paged`` in
+    chunks of 256 (page 16), then ``SERVE_F32[1]`` tokens one at a time
+    (teacher forcing), against one ``Model.forward`` of the whole sequence
+    through the flash-attention kernel: within 1e-4 (prefill positions)
+    and 1e-3 (decode positions) of the logit scale with the fp pool, the
+    bars of ``lm_prefill``; the all-int8 pool's distance and top-1
+    agreement reported, with no bar."""
+    cfg = model.cfg
+    P, D = SERVE_F32
+    toks = lm_tokens(cfg, 1, P + D)[0]
+    with torch.inference_mode():
+        truth = model(toks[None])[0, :, :cfg.vocab]
+    scale = float(truth.abs().max())
+    out = dict(dtype="float32", prompt=P, decoded=D, chunk=SERVE_CHUNK,
+               page_size=SERVE_PAGE, logit_scale=scale)
+    for name, spec in (("fp", KVCacheSpec.all_fp(cfg.n_layers)),
+                       ("int8", spec_i8)):
+        got = paged_logits(model, spec, toks, P)
+        err = (got - truth).abs().amax(dim=-1)
+        res = dict(prefill_max_abs_err=float(err[:P].max()),
+                   decode_max_abs_err=float(err[P:].max()),
+                   rms_rel_err=float((got - truth).square().mean().sqrt())
+                   / scale,
+                   top1_agreement=float((got.argmax(-1) ==
+                                         truth.argmax(-1)).float().mean()))
+        if name == "fp":
+            check(res["prefill_max_abs_err"] <= 1e-4 * scale,
+                  f"paged prefill vs forward {res['prefill_max_abs_err']} "
+                  f"> 1e-4 * {scale}")
+            check(res["decode_max_abs_err"] <= 1e-3 * scale,
+                  f"paged decode vs forward {res['decode_max_abs_err']} "
+                  f"> 1e-3 * {scale}")
+        out[name] = res
+        del got
+    return out
+
+
+def stream_check(prompt, got, want, logits_of) -> dict:
+    """Two greedy streams of one prompt are equal, or first differ at a
+    near-tie: where the logits of their common prefix (``logits_of``) have
+    their two top tokens, the two streams' picks, within ``STREAM_TIE`` of
+    the logit scale.  The comparison ends at that flip (at most one)."""
+    n = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             None)
+    if n is None:
+        check(len(got) == len(want), f"stream lengths {len(got)} and "
+                                     f"{len(want)} differ")
+        return dict(equal=len(want))
+    seq = torch.as_tensor(np.concatenate([prompt, want[:n]]), device=DEV)
+    lg = logits_of(seq)
+    top = torch.topk(lg, 2)
+    margin, scale = float(top.values[0] - top.values[1]), \
+        float(lg.abs().max())
+    check(set(top.indices.tolist()) == {got[n], want[n]}
+          and margin < STREAM_TIE * scale,
+          f"streams differ at token {n} ({got[n]} vs {want[n]}) where the "
+          f"top-2 logits are {margin} apart of {scale}: not a near-tie")
+    return dict(equal=n, flip=dict(position=n, margin=margin,
+                                   logit_scale=scale))
+
+
+def serve_midstream(engine, reqs, first):
+    """Submit ``first`` requests, step 3 times, submit the rest, run."""
+    handles = [engine.submit(r) for r in reqs[:first]]
+    for _ in range(3):
+        engine.step()
+    handles += [engine.submit(r) for r in reqs[first:]]
+    engine.run()
+    return [engine.scheduler.outputs[h] for h in handles]
+
+
+def serve_invariants(model, spec_name, spec) -> dict:
+    """float32, greedy, ``SERVE_INV``: every request's stream in four
+    variants (continuous batching, n-gram speculation, prefix caching over
+    a shared 256-token prefix, a pool of half the worst case) equals the
+    same request served alone on the same pool type, but for one near-tie
+    flip.  The near-tie's logits come from ``Model.forward`` (fp pool) or
+    a paged prefill on the pool's spec (int8: what the stream saw)."""
+    cfg = model.cfg
+    if spec_name == "fp":
+        def logits_of(seq):
+            with torch.inference_mode():
+                return model(seq[None])[0, -1, :cfg.vocab].float()
+    else:
+        def logits_of(seq):
+            return paged_logits(model, spec, seq, seq.shape[0])[-1]
+    worst = SERVE_INV["batch_slots"] * -(-SERVE_INV["max_seq"] //
+                                         SERVE_PAGE) + 1
+    inv = serve_requests(cfg.vocab, SERVE_INV_REQS, LM_SEED + 3)
+    pre = serve_requests(cfg.vocab, SERVE_PREFIX_REQS, LM_SEED + 4,
+                         SERVE_PREFIX)
+    solo = ServingEngine(model, ServingConfig(
+        **dict(SERVE_INV, batch_slots=1), kv_cache=spec))
+    want = {id(r): solo.generate([r])[0] for r in inv + pre}
+    cold_chunks = sum(-(-len(r.prompt) // SERVE_CHUNK) for r in pre)
+    out = dict(solo_decode_steps=solo.metrics.decode_steps)
+    for variant, reqs, kw in (
+            ("batched", inv, {}),
+            ("ngram", inv, dict(spec_decode="ngram", spec_k=4)),
+            ("prefix", pre, dict(prefix_cache=True)),
+            ("preempt", inv, dict(num_pages=worst // 2))):
+        eng = ServingEngine(model, ServingConfig(**SERVE_INV, **kw,
+                                                 kv_cache=spec))
+        got = serve_midstream(eng, reqs, 4)
+        checks = [stream_check(r.prompt, g, want[id(r)], logits_of)
+                  for r, g in zip(reqs, got)]
+        m = eng.metrics.summary()
+        res = dict(flips=[dict(request=i, **c["flip"])
+                          for i, c in enumerate(checks) if "flip" in c],
+                   tokens_compared=sum(c["equal"] for c in checks),
+                   tokens=sum(len(g) for g in got),
+                   distinct_tokens=[len(set(g)) for g in got],
+                   **{k: m[k] for k in ("decode_steps", "prefill_chunks",
+                                        "preemptions", "spec_proposed",
+                                        "spec_accepted", "prefix_hit_rate")})
+        check(sum(len(set(g)) for g in got) > len(got),
+              f"{variant}: every stream repeats one token (a vacuous check)")
+        if variant == "ngram":
+            check(m["spec_steps"] > 0, "n-gram speculation never verified")
+        if variant == "prefix":
+            check(m["prefix_hit_rate"] > 0 and
+                  m["prefill_chunks"] < cold_chunks,
+                  f"prefix cache: hit rate {m['prefix_hit_rate']}, "
+                  f"{m['prefill_chunks']} chunks vs {cold_chunks} cold")
+            res["cold_prefill_chunks"] = cold_chunks
+        if variant == "preempt":
+            check(m["preemptions"] >= 1, f"no preemption with "
+                                         f"{worst // 2} pages")
+            res["num_pages"] = worst // 2
+        out[variant] = res
+        del eng
+    return out
+
+
+def serve_branch_gain(model) -> dict:
+    """Multiply every layer's ``wo`` and ``w_down`` by 4 (exact in bf16)
+    up to ``SERVE_BRANCH_GAIN``, probing each gain on 256 tokens: the share
+    of positions whose greedy pick is their own input token, the distinct
+    picks, the logit scale and the median top-2 margin."""
+    cfg = model.cfg
+    toks = lm_tokens(cfg, 1, 256)
+    gain, probes = 1.0, []
+    while True:
+        with torch.inference_mode():
+            lg = model(toks)[0, :, :cfg.vocab].float()
+        picks, top = lg.argmax(-1), lg.topk(2, dim=-1).values
+        probes.append(dict(
+            gain=gain, self_share=float((picks == toks[0]).float().mean()),
+            distinct_picks=int(picks.unique().numel()),
+            logit_scale=float(lg.abs().max()),
+            median_top2_margin=float((top[:, 0] - top[:, 1]).median())))
+        if gain >= SERVE_BRANCH_GAIN:
+            break
+        with torch.no_grad():
+            for p in model.params["layers"]:
+                p["attn"]["wo"].mul_(4.0)
+                p["mlp"]["w_down"].mul_(4.0)
+        gain *= 4.0
+    check(probes[-1]["self_share"] <= SERVE_SELF_SHARE,
+          f"branch gain {gain}: {probes[-1]['self_share']} of the positions "
+          f"still predict their own token")
+    return dict(gain=gain, probes=probes)
+
+
+def serve_spec_report(model):
+    """The SIRA spec at full width: the default (every layer's decision
+    and reason) and the one the int8 pool uses, derived with ``max_step``
+    raised to the default's worst step rounded up to a tenth, so that
+    every layer goes int8."""
+    t0 = time.perf_counter()
+    default = derive_kv_spec(model)
+    derive_s = time.perf_counter() - t0
+
+    def steps(spec):
+        return [float(max(l.k_amax.max(), l.v_amax.max()) / 127.0)
+                for l in spec.layers]
+    worst = max(steps(default))
+    max_step = math.ceil(worst * 10) / 10
+    spec_i8 = derive_kv_spec(model, max_step=max_step)
+    check(spec_i8.n_int8 == model.cfg.n_layers,
+          f"max_step {max_step}: {spec_i8.n_int8} int8 layers")
+    reasons: dict = {}
+    for l in default.layers:
+        reasons[l.reason or "int8"] = reasons.get(l.reason or "int8", 0) + 1
+    report = dict(default=dict(max_step=0.5, n_int8=default.n_int8,
+                               layers=len(default.layers),
+                               reasons=[l.reason for l in default.layers],
+                               reason_counts=reasons,
+                               step_per_layer=steps(default),
+                               derive_s=derive_s),
+                  int8_pool=dict(max_step=max_step, n_int8=spec_i8.n_int8,
+                                 step_per_layer=steps(spec_i8),
+                                 k_scale_per_layer=[
+                                     l.k_scale.tolist()
+                                     for l in spec_i8.layers]))
+    return spec_i8, report
+
+
+def serve_timed(model, spec, kw, reqs, first) -> dict:
+    """One bf16 engine run over ``reqs`` (``first`` submitted, 3 steps,
+    the rest): the metrics' summary, TTFT p50/p99, ms per decode step at
+    every slot active (median of the ``serve:decode_step`` spans, which
+    end after the sampled tokens reach the host), ms per prefill chunk
+    (each ``serve:prefill`` span, which ends the same way, over its
+    chunks; median), peak device memory."""
+    tracer, prev = Tracer(enabled=True), get_tracer()
+    eng = ServingEngine(model, ServingConfig(**SERVE_BF16, **kw,
+                                             kv_cache=spec))
+    pool = eng.cache.hbm_bytes()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    set_tracer(tracer)
+    t0 = time.perf_counter()
+    try:
+        outs = serve_midstream(eng, reqs, first)
+    finally:
+        set_tracer(prev)
+    wall_s = time.perf_counter() - t0
+    m = eng.metrics
+    full = [sp.dur_us / 1e3 for sp in tracer.spans
+            if sp.name == "serve:decode_step"
+            and sp.attrs["active"] == SERVE_BF16["batch_slots"]]
+    verify = [sp.dur_us / 1e3 for sp in tracer.spans
+              if sp.name == "serve:spec_verify"]
+    chunk = [sp.dur_us / 1e3 / -(-(sp.attrs["prompt_tokens"] -
+                                   sp.attrs["cached_tokens"]) //
+                                 SERVE_CHUNK)
+             for sp in tracer.spans if sp.name == "serve:prefill"]
+    med = lambda xs: statistics.median(xs) if xs else None
+    res = dict(summary=m.summary(), wall_s=wall_s,
+               distinct_tokens=[len(set(o)) for o in outs],
+               ttft_p50_s=m.ttft_percentile(50),
+               ttft_p99_s=m.ttft_percentile(99),
+               token_latency_p50_s=m.token_latency_percentile(50),
+               ms_per_decode_step_all_slots=med(full),
+               decode_steps_all_slots=len(full),
+               ms_per_verify_step=med(verify),
+               ms_per_prefill_chunk=med(chunk),
+               pool_bytes=pool, memory_allocated_before=resident,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    check(all(len(o) == r.max_new_tokens for o, r in zip(outs, reqs)),
+          "bf16 serving: a request did not get its tokens")
+    check(all(0 <= t < model.cfg.vocab for o in outs for t in o),
+          "bf16 serving: a token outside the vocabulary")
+    return res, outs
+
+
+def device_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall ms (ended by a
+    synchronize), the device's busy ms (the union of its kernels'
+    intervals) and idle share, device ms by PyTorch operator (top twelve,
+    self time of the kernels they launched) and ``by_kernel``: each
+    kernel's name -> [ms, launches]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_kernel = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        acc = by_kernel.setdefault(ev.name, [0.0, 0])
+        acc[0] += ev.time_range.elapsed_us() / 1e3
+        acc[1] += 1
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    ops = sorted(((a.self_device_time_total / 1e3, a.count, a.key)
+                  for a in prof.key_averages()
+                  if a.key.startswith("aten::")
+                  and a.self_device_time_total > 0), reverse=True)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+                idle_share=max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
+                kernels=len(spans),
+                device_ms_by_op=[dict(op=k, ms=ms, calls=n)
+                                 for ms, n, k in ops[:12]],
+                device_ms_other_ops=sum(ms for ms, _, _ in ops[12:]),
+                by_kernel=by_kernel)
+
+
+def top_kernels(by_kernel: dict, n: int) -> list:
+    return [dict(kernel=k[:100], ms=ms, calls=c) for k, (ms, c) in
+            sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:n]]
+
+
+def serve_decode_profile(model, reqs) -> dict:
+    """One decode step with every slot active (``SERVE_BF16``, fp pool),
+    profiled after two warm steps."""
+    eng = ServingEngine(model, ServingConfig(**SERVE_BF16))
+    for r in reqs[:SERVE_BF16["batch_slots"]]:
+        eng.submit(dataclasses.replace(r, max_new_tokens=16))
+    for _ in range(3):                 # admit + prefill all, then warm
+        eng.step()
+    check(len(eng.scheduler.active_slots()) == SERVE_BF16["batch_slots"],
+          "decode profile: not every slot is active")
+    lengths = [eng.scheduler.slots[i].length
+               for i in eng.scheduler.active_slots()]
+    prof = device_profile(eng.step)
+    prof["top_kernels"] = top_kernels(prof.pop("by_kernel"), 8)
+    return dict(batch_slots=SERVE_BF16["batch_slots"],
+                max_seq=SERVE_BF16["max_seq"], cached_tokens=lengths,
+                **prof)
+
+
+def serve_static() -> dict:
+    """Static mode on an SSM at full width, float32: four equal-length
+    prompts batched against each served alone (near-tie rule, the
+    forward's logits), and the refusals the reference makes: a mixed-
+    length batch and paged mode."""
+    arch, n, P, new, layers = SERVE_STATIC
+    cfg = get_config(arch)
+    check_widths(cfg, FAMILY_WIDTHS[arch])
+    model = lm_model(dataclasses.replace(cfg, dtype=torch.float32,
+                                         n_layers=layers))
+    rng = np.random.default_rng(LM_SEED + 6)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, size=(P,)),
+                    max_new_tokens=new) for _ in range(n)]
+    sc = ServingConfig(batch_slots=n, max_seq=P + new)
+    eng = ServingEngine(model, sc)
+    check(eng.mode == "static", f"{arch} serves in {eng.mode} mode")
+    t0 = time.perf_counter()
+    got = eng.generate(reqs)
+    batched_s = time.perf_counter() - t0
+    solo = ServingEngine(model, sc.replace(batch_slots=1))
+    t0 = time.perf_counter()
+    want = [solo.generate([r])[0] for r in reqs]
+    solo_s = time.perf_counter() - t0
+
+    def logits_of(seq):
+        with torch.inference_mode():
+            return model(seq[None])[0, -1, :cfg.vocab].float()
+    checks = [stream_check(r.prompt, g, w, logits_of)
+              for r, g, w in zip(reqs, got, want)]
+    refusals = []
+    for bad in (lambda: eng.generate([reqs[0], dataclasses.replace(
+                    reqs[1], prompt=reqs[1].prompt[:P // 2])]),
+                lambda: ServingEngine(model, sc.replace(mode="paged"))):
+        try:
+            bad()
+        except NotImplementedError as e:
+            refusals.append(str(e)[:80])
+    check(len(refusals) == 2, f"{arch}: a mixed-length batch or paged mode "
+                              f"was not refused")
+    del model, eng, solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arch=arch, dtype="float32", layers=layers,
+                cut=f"{layers} of {cfg.n_layers} layers", requests=n,
+                prompt=P, new_tokens=new,
+                distinct_tokens=[len(set(g)) for g in got],
+                tokens_compared=sum(c["equal"] for c in checks),
+                flips=[dict(request=i, **c["flip"])
+                       for i, c in enumerate(checks) if "flip" in c],
+                batched_s=batched_s, solo_s=solo_s, refusals=refusals)
+
+
+def serve_bf16(model, spec_i8) -> dict:
+    """bf16 (the published dtype), ``SERVE_BF16``, 16 requests from a
+    seed, eight first and eight after 3 steps, in four variants: the fp
+    pool, the int8 pool, n-gram speculation, the prefix cache (a shared
+    1024-token prefix).  Then the int8 streams' agreement with the fp
+    ones, and one decode step profiled."""
+    rng = np.random.default_rng(LM_SEED + 5)
+    lens = list(zip(rng.integers(128, 2049, SERVE_BF16_N),
+                    rng.integers(32, 129, SERVE_BF16_N)))
+    V = model.cfg.vocab
+    reqs = serve_requests(V, lens, LM_SEED + 7)
+    pre = serve_requests(V, list(zip(rng.integers(64, 1025, SERVE_BF16_N),
+                                     rng.integers(32, 129, SERVE_BF16_N))),
+                         LM_SEED + 8, SERVE_BF16_PREFIX)
+    half = SERVE_BF16_N // 2
+    serve_timed(model, "fp", {}, serve_requests(V, ((300, 8), (40, 8)),
+                                                LM_SEED + 9), 1)  # warm-up
+    runs, streams = {}, {}
+    for name, spec, kw, rs in (
+            ("fp", "fp", {}, reqs), ("int8", spec_i8, {}, reqs),
+            ("ngram", "fp", dict(spec_decode="ngram", spec_k=4), reqs),
+            ("prefix", "fp", dict(prefix_cache=True), pre)):
+        runs[name], streams[name] = serve_timed(model, spec, kw, rs, half)
+        gc.collect()
+        torch.cuda.empty_cache()
+    fp, i8 = streams["fp"], streams["int8"]
+    agree = [sum(a == b for a, b in zip(x, y)) / len(x)
+             for x, y in zip(fp, i8)]
+    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                  len(x)) for x, y in zip(fp, i8)]
+    return dict(
+        dtype="bfloat16", config=SERVE_BF16, requests=SERVE_BF16_N,
+        prompt_tokens=[int(n) for n, _ in lens],
+        new_tokens=[int(m) for _, m in lens],
+        runs=runs,
+        int8_vs_fp=dict(mean_token_agreement=float(np.mean(agree)),
+                        per_request=agree, first_divergence=first),
+        decode_profile=serve_decode_profile(model, reqs))
+
+
+def phase_serve(card: str) -> dict:
+    t_phase = time.perf_counter()
+    gc.collect()                      # the earlier phases' models
+    torch.cuda.empty_cache()
+    # counts to 0 just before this path, read just after
+    _build.reset_launch_counts()
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.vocab) == (28, 1536, 12, 2, 128, 151936),
+          f"{LM_ARCH} is not at its published width")
+    bf16 = lm_model(cfg)
+    gain = serve_branch_gain(bf16)
+    spec_i8, spec_report = serve_spec_report(bf16)
+    pools = {name: PagedKVCache(cfg, spec, SERVE_BF16["batch_slots"],
+                                SERVE_BF16["max_seq"],
+                                page_size=SERVE_PAGE,
+                                device=DEV).hbm_bytes()
+             for name, spec in (("bf16", KVCacheSpec.all_fp(cfg.n_layers)),
+                                ("int8", spec_i8))}
+    check(2 * pools["int8"] == pools["bf16"],
+          f"the int8 pool is not half the bf16 pool: {pools}")
+    spec_report["pool_bytes"] = pools
+    torch.cuda.empty_cache()
+    m32 = get_model(dataclasses.replace(cfg, dtype=torch.float32))
+    m32.params = copy.deepcopy(bf16.params).to(torch.float32)
+    t0 = time.perf_counter()
+    paged = serve_paged_vs_forward(m32, spec_i8)
+    paged["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inv = {name: serve_invariants(m32, name, spec)
+           for name, spec in (("fp", "fp"), ("int8", spec_i8))}
+    inv["seconds"] = time.perf_counter() - t0
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    timed = serve_bf16(bf16, spec_i8)
+    timed["seconds"] = time.perf_counter() - t0
+    del bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    static = serve_static()
+    static["seconds"] = time.perf_counter() - t0
+    return dict(phase="serve", arch=LM_ARCH, seed=LM_SEED, card=card,
+                branch_gain=gain, kv_spec=spec_report, paged_vs_forward=paged,
+                invariants=inv, bf16=timed, static=static,
+                seconds=time.perf_counter() - t_phase,
+                note="times: host clock; tokens/s and TTFT from the "
+                     "engine's ServingMetrics; no kernel of this repo on "
+                     "the serving path (paged attention is plain "
+                     "PyTorch): flash_attention runs only in the "
+                     "Model.forward oracles",
+                launches={k: _build.LAUNCH_COUNTS[k] for k in KERNEL_META})
+
+
+# --------------------------------------------------------------------------
 
 KERNEL_META = {
     "int_matmul": dict(
@@ -1914,8 +2488,15 @@ def main() -> None:
     emit(lm)                          # memory
     fam = phase_lm_families()
     emit(fam)
+    serve = phase_serve(env["nvidia_smi"])
+    emit(serve)
+    check(serve["launches"]["flash_attention"] > 0 and
+          all(serve["launches"][k] == 0
+              for k in ("int_matmul", "multithreshold", "quantize")),
+          f"serve: launches {serve['launches']}")
     launches = dict(main_path["launches"], **lm["launches"])
-    launches["flash_attention"] += fam["launches"]["flash_attention"]
+    for phase in (fam, serve):
+        launches["flash_attention"] += phase["launches"]["flash_attention"]
     kernels = []
     for name, meta in KERNEL_META.items():
         t = times[name][0]
@@ -1928,7 +2509,8 @@ def main() -> None:
                 sira_flow=sira["launches"].get(name, 0),
                 qat_chain=qat["launches"].get(name, 0),
                 lm_prefill=lm["launches"].get(name, 0),
-                lm_families=fam["launches"].get(name, 0)),
+                lm_families=fam["launches"].get(name, 0),
+                serve=serve["launches"].get(name, 0)),
             max_abs_err=grid[name]["max_abs_err"], ms=t["ms"],
             wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],

@@ -9,7 +9,8 @@ the wrapper of the CUDA kernel (its plain version for CPU tensors).  The
 reference's ``chunk`` only orders the reduction and has no counterpart.
 Decode has no kernel in the reference either and stays plain PyTorch; it
 writes the new key/value into the cache **in place** and returns the same
-cache.  ``paged_attention`` is not ported yet (serving).
+cache.  ``paged_attention`` (the serving path, ``serve/engine.py``) is
+plain PyTorch as in the reference, and writes its page pools in place.
 """
 from __future__ import annotations
 
@@ -146,3 +147,101 @@ def quantize_kv(x: torch.Tensor, scale) -> torch.Tensor:
                         device=x.device).reshape(1, 1, -1, 1)
     q = torch.round(x.to(torch.float32) / s)
     return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+def paged_attention(params, x, k_pages, v_pages, page_table, lengths, *,
+                    n_heads, n_kv, hd, theta, page_size,
+                    logit_cap=0.0, quant=None, k_scale=None, v_scale=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Multi-token attention against a paged KV cache.
+
+    One function covers all three serving phases: chunked prefill is a
+    call with B=1, T=chunk; batched decode is B=slots, T=1; speculative
+    verification is B=slots, T=spec_k+1, each slot's window at its own
+    offset ``lengths[b]``.  The position mask makes token t attend exactly
+    to the cache plus the tokens before it in the window, so
+    ``logits[:, t]`` equals what t sequential single-token calls give.
+
+      x          (B, T, d)    chunk of new tokens per slot
+      k_pages    (P, page_size, KV, hd)   shared physical page pool
+      v_pages    (P, page_size, KV, hd)   (int8: scaled-integer storage)
+      page_table (B, n_pages) int physical page per logical page; page 0
+                 is the trash page (idle slots write there, never read live)
+      lengths    (B,) tokens already cached per slot; the chunk occupies
+                 logical positions [lengths[b], lengths[b] + T)
+
+    The chunk's K/V are written (quantized if the pool is int8) into the
+    pools **in place**, *before* the read, so queries attend to the same
+    storage round trip the next step will see; keys at k_pos <= own
+    position (causal within the chunk falls out of the position mask).
+    Dequantization is folded into the query scaling (K) and the PV output
+    (V), per KV head.  Returns (y, k_pages, v_pages), the pools the same
+    tensors that were passed.
+
+    Scatter-before-gather is also the speculative-rollback contract: a
+    rejected draft's K/V stay in the pool as garbage past the slot's
+    committed length, unreadable (every mask is position <= query, and
+    queries never precede the length pointer) until the next call's
+    scatter overwrites them; rolling back is just not advancing the
+    pointer (``serve/kv_cache.py rollback``).
+    """
+    B, T, _ = x.shape
+    table = page_table.to(device=x.device, dtype=torch.long)
+    n_pages = table.shape[1]
+    S_v = n_pages * page_size
+    positions = lengths.to(device=x.device, dtype=torch.long)[:, None] + \
+        torch.arange(T, device=x.device)[None, :]                # (B, T)
+    q, k, v = _qkv(params, x, n_heads, n_kv, hd, positions, theta, quant)
+
+    int_cache = k_pages.dtype == torch.int8
+    if int_cache:
+        k_st, v_st = quantize_kv(k, k_scale), quantize_kv(v, v_scale)
+    else:
+        k_st = k.to(k_pages.dtype)
+        v_st = v.to(v_pages.dtype)
+
+    # scatter the chunk into its pages: position p lives in physical page
+    # table[b, p // page_size] at row p % page_size.  Positions past the
+    # table (the pad tail of a prefill chunk at max_seq) go to the trash
+    # page: an indexed gather would clamp them onto the last live page and
+    # corrupt it.  Several rows may write trash page 0, row 0, in one call
+    # (idle slots, pad tails), and which write lands is undefined on CUDA;
+    # that is harmless only because page 0 is never read at a live
+    # position: the cache never maps it to a slot.
+    in_range = positions < S_v
+    page_ids = torch.gather(
+        table, 1, torch.where(in_range, positions // page_size, 0))
+    page_ids = torch.where(in_range, page_ids, 0)                # (B, T)
+    offs = torch.where(in_range, positions % page_size, 0)
+    flat_p, flat_o = page_ids.reshape(-1), offs.reshape(-1)
+    k_pages.index_put_((flat_p, flat_o), k_st.reshape(B * T, n_kv, hd))
+    v_pages.index_put_((flat_p, flat_o), v_st.reshape(B * T, n_kv, hd))
+
+    # gather each slot's logical view (trash and garbage rows masked below)
+    kc = k_pages[table].reshape(B, S_v, n_kv, hd).to(torch.float32)
+    vc = v_pages[table].reshape(B, S_v, n_kv, hd).to(torch.float32)
+
+    groups = n_heads // n_kv
+    qf = (q.to(torch.float32) * hd ** -0.5).reshape(B, T, n_kv, groups, hd)
+    if int_cache:  # fold K's dequantization into q, per KV head
+        qf = qf * _head_scale(k_scale, n_kv, x.device)
+    s = torch.einsum("btkgh,bskh->btkgs", qf, kc)
+    if logit_cap:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    k_pos = torch.arange(S_v, device=x.device)
+    mask = k_pos[None, None, :] <= positions[:, :, None]        # (B, T, S_v)
+    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("btkgs,bskh->btkgh", p, vc)
+    if int_cache:
+        out = out * _head_scale(v_scale, n_kv, x.device)
+    out = out.reshape(B, T, n_heads * hd).to(x.dtype)
+    y = linear(out, params["wo"], quant=quant)
+    return y, k_pages, v_pages
+
+
+def _head_scale(scale, n_kv: int, device) -> torch.Tensor:
+    """A per-KV-head (KV,) scale as float32, shaped to scale (B, T, KV,
+    groups, hd)."""
+    return torch.as_tensor(scale, dtype=torch.float32,
+                           device=device).reshape(1, 1, n_kv, 1, 1)

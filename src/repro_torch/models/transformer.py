@@ -18,6 +18,10 @@ shared attention block applied after every ``attn_every`` layers):
                                    layers, the reference's layout)
   * ``decode_step(...)``         → (logits (B, 1, V), cache), plain
                                    PyTorch, the cache updated in place
+  * ``decode_paged(...)``        → (logits (B, T, V), page pools), the
+                                   serving path against a paged KV cache
+                                   (``serve/``), plain PyTorch, the pools
+                                   written in place
   * ``loss(params, ...)``        → mean token cross-entropy, differentiable
                                    on the CPU (plain attention); on a card
                                    the flash-attention wrapper raises for
@@ -28,8 +32,7 @@ shared attention block applied after every ``attn_every`` layers):
 
 Layers are a list: gemma2's layer ``2i`` is the reference's ``local[i]``
 and ``2i + 1`` its ``global[i]``; the hybrid's layer ``g·attn_every + j``
-is the reference's ``layers[g][j]``.  The paged decode path is not ported
-yet (serving, ROADMAP A10).
+is the reference's ``layers[g][j]``.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..core.lower import resolve_device
 from .attention import (attention_decode, attention_prefill, init_attention,
-                        init_kv_cache)
+                        init_kv_cache, paged_attention)
 from .common import dense_init, embed_init, rms_norm, softcap
 from .convert import ParamTree, load_reference_params, unflatten
 from .mlp import apply_mlp, init_mlp
@@ -401,6 +404,54 @@ class Model(nn.Module):
         cfg = self.cfg
         return cfg.family in DENSE_FAMILIES + ("moe",) and \
             not cfg.sliding_window
+
+    def decode_paged(self, tokens: torch.Tensor, kv_pages, page_table,
+                     lengths, *, page_size: int, quant=None, kv_scales=None
+                     ) -> Tuple[torch.Tensor, Any]:
+        """Multi-token step against a paged KV cache (the serving path).
+
+        tokens (B, T) → (logits (B, T, V), kv_pages).  Covers chunked
+        prefill (B=1, T=chunk), batched continuous decode (B=slots, T=1)
+        and speculative verification (B=slots, T=spec_k+1, each slot's
+        window at its own ``lengths[b]`` offset) with one code path; see
+        ``attention.paged_attention``.
+
+        kv_pages: a list over layers of {"k": (P, page, KV, hd), "v": ...}
+        page pools, so each layer can carry its own storage dtype (int8
+        where SIRA certifies the range, the model's dtype elsewhere); they
+        are written in place and the same list is returned.  kv_scales:
+        per-layer (k_scale, v_scale) for the int8 layers, None entries for
+        the others.  page_table (B, n_pages) and lengths (B,) are shared by
+        all layers."""
+        cfg = self.cfg
+        if not self.supports_paged:
+            raise NotImplementedError(
+                f"paged decode needs full-context attention — "
+                f"family={cfg.family!r} sliding_window={cfg.sliding_window}")
+        params = self._weights()
+        x = self._embed(params, tokens, None)
+        for layer, p in enumerate(params["layers"]):
+            ks, vs = (kv_scales[layer] if kv_scales and
+                      kv_scales[layer] is not None else (None, None))
+            h, _, _ = paged_attention(
+                p["attn"], rms_norm(x, p["ln1"]), kv_pages[layer]["k"],
+                kv_pages[layer]["v"], page_table, lengths,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+                theta=cfg.rope_theta, page_size=page_size,
+                logit_cap=cfg.attn_softcap, quant=quant, k_scale=ks,
+                v_scale=vs)
+            if cfg.post_norms:
+                h = rms_norm(h, p["post_ln1"])
+            x = x + h
+            if cfg.family == "moe":
+                h, _ = _moe_ffn(p, x, cfg, quant)
+            else:
+                h = apply_mlp(p["mlp"], rms_norm(x, p["ln2"]),
+                              act=cfg.mlp_act, quant=quant)
+            if cfg.post_norms:
+                h = rms_norm(h, p["post_ln2"])
+            x = x + h
+        return self._logits(params, x), kv_pages
 
 
 def get_model(cfg: ArchConfig, device=None) -> Model:

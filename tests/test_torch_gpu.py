@@ -1,8 +1,9 @@
 """Tests that need a CUDA device: each hand-written kernel against its
 plain PyTorch version, compiled models (interval- and affine-proven
 plans) against the numpy interpreter, reduced LM prefills (dense, MoE,
-Mamba2, Zamba2) through the flash-attention kernel, and accumulator-aware QAT (training, resume,
-the exported model through the kernels), on the card.  They skip elsewhere (decided
+Mamba2, Zamba2) through the flash-attention kernel, accumulator-aware QAT (training, resume,
+the exported model through the kernels), and the serving path
+(``paged_attention``, the reduced engine against the CPU's), on the card.  They skip elsewhere (decided
 inside each test, never at import).  This file imports neither ``jax``
 nor ``repro``, so it runs on a machine that has only the port's
 dependencies:
@@ -31,6 +32,8 @@ from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import attention as attn_mod, get_model
 from repro_torch.qat import (QATConfig, check_budget_invariant,
                              proven_layer_bits, run_qat)
+from repro_torch.serve import (Request, ServingConfig, ServingEngine,
+                               derive_kv_spec)
 from repro_torch.tree import leaves
 
 NEEDS_CARD = "needs a CUDA device (the kernels have no CPU mode)"
@@ -588,3 +591,124 @@ def test_run_qat_without_a_card_raises():
         pytest.skip("a card is present: device=None trains on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_qat(QATConfig(steps=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+def test_paged_attention_on_the_card_matches_the_cpu(int8):
+    """The serving attention (plain PyTorch, no kernel) on the card
+    against the CPU: three slots (one idle on the trash page, one running
+    past its table), T = 5, outputs of the live slots within 1e-5 of
+    their scale; the pools' rows outside the trash page within 1e-6 of
+    the pool's scale (fp) or at most one step apart (int8)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    model = get_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    attn = model.params["layers"][0]["attn"]
+    rng = np.random.default_rng(0)
+    shape = (10, 4, cfg.n_kv_heads, cfg.hd)
+    if int8:
+        kp = _t(rng.integers(-127, 128, size=shape).astype(np.int8))
+        vp = _t(rng.integers(-127, 128, size=shape).astype(np.int8))
+        scales = dict(k_scale=rng.uniform(0.02, 0.05, cfg.n_kv_heads),
+                      v_scale=rng.uniform(0.02, 0.05, cfg.n_kv_heads))
+    else:
+        kp = _t(rng.normal(size=shape).astype(np.float32))
+        vp = _t(rng.normal(size=shape).astype(np.float32))
+        scales = {}
+    table = torch.tensor([[1, 2, 3], [0, 0, 0], [4, 5, 6]],
+                         dtype=torch.int32)
+    lengths = torch.tensor([2, 0, 10])
+    x = _t(rng.normal(size=(3, 5, cfg.d_model)).astype(np.float32))
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+              theta=cfg.rope_theta, page_size=4, **scales)
+    card_attn = copy.deepcopy(attn).to("cuda")
+    kc, vc = kp.cuda(), vp.cuda()
+    y, _, _ = attn_mod.paged_attention(card_attn, x.cuda(), kc, vc,
+                                       table.cuda(), lengths.cuda(), **kw)
+    want, _, _ = attn_mod.paged_attention(attn, x, kp, vp, table, lengths,
+                                          **kw)
+    live = [0, 2]
+    scale = float(want[live].abs().max())
+    torch.testing.assert_close(y.cpu()[live], want[live], rtol=0,
+                               atol=1e-5 * scale)
+    for got, ref in ((kc, kp), (vc, vp)):
+        got, ref = got.cpu()[1:], ref[1:]
+        if int8:
+            assert int((got.int() - ref.int()).abs().max()) <= 1
+        else:
+            torch.testing.assert_close(got, ref, rtol=0,
+                                       atol=1e-6 * float(ref.abs().max()))
+
+
+def _equal_or_near_tie(cpu_model, prompt, got, want):
+    """Two greedy streams of one prompt agree, or first differ where the
+    CPU forward of their common prefix has its top two logits within
+    1e-5 of the logit scale (float32 sums in another order may flip a
+    near-tie; everything after it is not compared)."""
+    n = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             None)
+    if n is None:
+        return got == want
+    seq = torch.as_tensor(np.concatenate([prompt, want[:n]]))[None]
+    with torch.inference_mode():
+        logits = cpu_model(seq)[0, -1, :cpu_model.cfg.vocab]
+    top = torch.topk(logits, 2)
+    return set(top.indices.tolist()) == {got[n], want[n]} and \
+        float(top.values[0] - top.values[1]) < \
+        1e-5 * float(logits.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [
+    dict(), dict(kv_cache="sira-int8"), dict(spec_decode="ngram"),
+    dict(prefix_cache=True)], ids=["fp", "int8", "ngram", "prefix"])
+def test_serving_engine_on_the_card_matches_the_cpu(variant):
+    """The reduced qwen2-1.5b engine on the card against the same engine
+    and weights on the CPU: greedy streams equal (a near-tie flip
+    allowed), prefill chunks, decode steps and pools on their devices."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    cpu = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = get_model(cfg)
+    card.params = copy.deepcopy(cpu.params).to("cuda")
+    rng = np.random.default_rng(3)
+    pat = rng.integers(0, cfg.vocab, size=(4,))
+    prompts = [np.concatenate([np.tile(pat, 3),
+                               rng.integers(0, cfg.vocab, size=(n,))])
+               for n in (2, 5, 9, 1)]
+    sc = ServingConfig(batch_slots=2, max_seq=48, page_size=4,
+                       prefill_chunk=8, **variant)
+    outs = []
+    for model in (card, cpu):
+        eng = ServingEngine(model, sc)
+        assert eng.cache.pages[0]["k"].device.type == model.device.type
+        outs.append(eng.generate([Request(prompt=p, max_new_tokens=8,
+                                          request_id=i)
+                                  for i, p in enumerate(prompts)]))
+        if variant.get("kv_cache"):
+            assert eng.kv_spec.n_int8 == cfg.n_layers
+    for p, got, want in zip(prompts, *outs):
+        assert _equal_or_near_tie(cpu, p, got, want), (got, want)
+
+
+@pytest.mark.gpu
+def test_kv_spec_on_the_card_equals_the_cpu():
+    """derive_kv_spec reads the weights from the card to the host: the
+    same spec as from the CPU model, calibration included."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    cpu = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = get_model(cfg)
+    card.params = copy.deepcopy(cpu.params).to("cuda")
+    toks = [np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 16))]
+    for kw in (dict(), dict(calib_token_batches=toks)):
+        a, b = derive_kv_spec(card, **kw), derive_kv_spec(cpu, **kw)
+        for la, lb in zip(a.layers, b.layers):
+            assert la.int8 == lb.int8
+            np.testing.assert_allclose(la.k_amax, lb.k_amax, rtol=1e-5)
+            np.testing.assert_allclose(la.v_amax, lb.v_amax, rtol=1e-5)

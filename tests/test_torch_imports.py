@@ -1,8 +1,9 @@
 """The port stands alone: ``repro_torch`` (and ``chip_smoke.py``) import
 neither ``jax`` nor the JAX package ``repro``, proven in a fresh process
 that runs the port's QNN main path (affine domain, dataflow steps), the
-fuzzer, one reduced LM prefill and three QAT steps with their export, and
-by a scan of the sources."""
+fuzzer, one reduced LM prefill, three QAT steps with their export and a
+serving engine answering two requests (SIRA-int8 cache), and by a scan of
+the sources."""
 import pathlib
 import re
 import subprocess
@@ -45,6 +46,16 @@ res = run_qat(QATConfig(budget=12, steps=3, hidden=(8,)), device="cpu")
 assert len(res.losses) == 3 and np.isfinite(res.losses).all()
 _, bits = proven_layer_bits(res.model, res.state.params)
 assert max(bits) <= 12
+import repro_torch.serve
+from repro_torch.serve import Request, ServingConfig, ServingEngine
+qwen = get_model(get_config("qwen2-1.5b", reduced=True), device="cpu").init(
+    torch.Generator().manual_seed(0))
+eng = ServingEngine(qwen, ServingConfig(batch_slots=2, max_seq=32,
+                                        kv_cache="sira-int8"))
+outs = eng.generate([Request(prompt=np.arange(5), max_new_tokens=3),
+                     Request(prompt=np.arange(7), max_new_tokens=2,
+                             temperature=1.0)])
+assert [len(o) for o in outs] == [3, 2] and eng.kv_spec.n_int8 == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED=" + ",".join(bad))

@@ -19,8 +19,8 @@ supports long contexts).  For each run it prints one JSON line:
     synchronize), the device's busy time (the union of the kernels'
     intervals) and its idle share of the wall time;
   * ``top_kernels``: the ten kernels with the most device time;
-  * ``top_ops``: the ten PyTorch operators (``aten::...``) whose kernels
-    take the most device time, with their calls.
+  * ``device_ms_by_op``: the twelve PyTorch operators (``aten::...``)
+    whose kernels take the most device time, with their calls.
 
 Then the ``nvidia-smi`` name and power limit.  Exits 2 without a CUDA
 device.
@@ -32,15 +32,14 @@ import json
 import pathlib
 import subprocess
 import sys
-import time
 
 import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (FAMILY_BF16, FAMILY_LONG,             # noqa: E402
-                        FAMILY_WIDTHS, LM_ARCH, LM_BF16, lm_model,
-                        lm_tokens)
+                        FAMILY_WIDTHS, LM_ARCH, LM_BF16, device_profile,
+                        lm_model, lm_tokens, top_kernels)
 from repro_torch.configs import get_config                     # noqa: E402
 
 
@@ -55,12 +54,10 @@ def family(name: str) -> str:
 
 
 def profile(model, toks) -> dict:
-    """One warm ``forward`` (its peak memory), then one profiled: device
-    time of its kernels (events on the card, not the host-side ops that
-    launched them) by family, and the device's busy time as the union of
-    their intervals."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    """One warm ``forward`` (its peak memory), then one profiled
+    (``chip_smoke.device_profile``): device time of its kernels (events
+    on the card, not the host-side ops that launched them) by family, and
+    the device's busy time as the union of their intervals."""
     weights = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     logits = model(toks)
@@ -68,40 +65,13 @@ def profile(model, toks) -> dict:
                   forward_peak=torch.cuda.max_memory_allocated(),
                   logits_bytes=logits.numel() * logits.element_size())
     del logits
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model(toks)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_family, by_name = [], {}, {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        ms = ev.time_range.elapsed_us() / 1e3
-        spans.append((ev.time_range.start, ev.time_range.end))
-        fam = family(ev.name)
-        by_family[fam] = by_family.get(fam, 0.0) + ms
-        ms0, n0 = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (ms0 + ms, n0 + 1)
-    busy_us, end = 0.0, float("-inf")
-    for s, e in sorted(spans):
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    ops = sorted(((getattr(a, "self_device_time_total", 0.0) / 1e3,
-                   a.count, a.key) for a in prof.key_averages()
-                  if getattr(a, "self_device_time_total", 0.0) > 0),
-                 reverse=True)[:10]
-    return dict(memory=memory, wall_ms=wall_ms,
-                device_busy_ms=busy_us / 1e3,
-                idle_share=max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
-                kernels=len(spans), device_ms_by_family=by_family,
-                top_kernels=[dict(ms=ms, calls=n, name=k[:120])
-                             for k, (ms, n) in top],
-                top_ops=[dict(ms=ms, calls=n, op=k) for ms, n, k in ops])
+    prof = device_profile(lambda: model(toks))
+    by_kernel = prof.pop("by_kernel")
+    by_family: dict = {}
+    for name, (ms, _) in by_kernel.items():
+        by_family[family(name)] = by_family.get(family(name), 0.0) + ms
+    return dict(memory=memory, device_ms_by_family=by_family,
+                top_kernels=top_kernels(by_kernel, 10), **prof)
 
 
 def main() -> None:
