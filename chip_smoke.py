@@ -6,7 +6,7 @@ Run from the repository root, no arguments, one card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
-use), then runs ten phases and prints one JSON object per line:
+use), then runs eleven phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds,
                the HGMMA (16-bit wgmma) instructions of flash_attention
@@ -74,7 +74,10 @@ use), then runs ten phases and prints one JSON object per line:
                and the tensor-core kernel's ring depth swept; both
                multithreshold routes swept over N (the crossover), the
                multithreshold bound by bytes or by the compares of a
-               search, M*C*ceil(log2(N+1))
+               search, M*C*ceil(log2(N+1)); flash attention's forward
+               also with its log-sum-exp (the training forward), and the
+               three backward kernels (D, dK/dV, dQ) at the same layer
+               shape beside SDPA's backward
   lm_prefill   the LM slice: qwen2-1.5b at full width (28 layers) with
                seeded random weights.  float32, B=1, S=1024: logits with
                the flash-attention kernel against plain attention, and
@@ -135,8 +138,33 @@ use), then runs ten phases and prints one JSON object per line:
                this repo is on the serving path (paged attention is plain
                PyTorch, as in the reference); flash_attention runs in the
                ``Model.forward`` oracles
+  lm_train     the LM's gradient and training (after the earlier phases'
+               models are freed).  The backward kernels over an edge grid
+               (float32, bf16, f16; hd 64 to 256; GQA groups 1 and 6;
+               q_offset, window, soft-cap, ragged lengths, rows that see
+               no key, 16 x 12 heads; the layer shape 1 x 4096): the
+               forward's lse within 1e-5 of the plain one, D within
+               1e-5 of rowsum(dO*out), dq, dk, dv
+               within ``flash_attention.grad_tolerance`` of the plain
+               backward on the same out and lse, bit-equal over two
+               calls, their distance to float64 autograd reported.
+               qwen2-1.5b at full width in float32, 1 x 1024:
+               ``Model.loss``'s gradient through the kernels within 1e-4
+               of each leaf's largest element through the plain
+               attention, 28 launches of each kernel.  Then
+               ``launch.train`` at published widths (bf16 params, float32
+               masters, 2 x 2048 tokens a step in 2 microbatches, 20
+               steps) under deterministic algorithms: the reference's
+               lines, one forward and three backward launches per layer
+               and microbatch, the loss falling, ms per step, tokens/s,
+               the model-FLOP share, peak memory, one more step profiled
+               (device ms by kernel family, idle share); then the same
+               run with a checkpoint every 10 steps killed at step 10,
+               and the same command resumes there and ends in the
+               straight run's state, bit for bit
 
-then a ``{"kernels": [...]}`` line (per kernel: launches on its path and
+then a ``{"kernels": [...]}`` line (the four TPU kernels' counterparts
+and the three backward kernels; per kernel: launches on its path and
 on each phase's path,
 max abs error against the plain version, and at the main path's shape
 ``ms``, the kernel's time on the device, beside ``wrapper_ms``, one eager
@@ -153,6 +181,7 @@ import copy
 import dataclasses
 import gc
 import importlib.util
+import io
 import json
 import math
 import os
@@ -188,8 +217,13 @@ from repro_torch.kernels.int_matmul import (                 # noqa: E402
 from repro_torch.kernels.multithreshold import (             # noqa: E402
     ROUTES as MT_ROUTES, SEARCH, route_for as mt_route_for)
 from repro_torch.kernels.flash_attention import (            # noqa: E402
-    flash_attention_fwd, tolerance as fa_tolerance)
-from repro_torch.kernels.ref import flash_attention_ref      # noqa: E402
+    BWD_KERNELS, bwd_delta, bwd_dkdv, bwd_dq, flash_attention_bwd,
+    flash_attention_fwd, flash_attention_fwd_lse, grad_tolerance,
+    tolerance as fa_tolerance)
+from repro_torch.kernels.ref import (                         # noqa: E402
+    DEAD_LSE, flash_attention_bwd_ref, flash_attention_lse_ref,
+    flash_attention_ref)
+from repro_torch.launch import train as lm_trainer      # noqa: E402
 from repro_torch.models import attention as lm_attention     # noqa: E402
 from repro_torch.models import moe as lm_moe                 # noqa: E402
 from repro_torch.models.convert import ParamTree             # noqa: E402
@@ -202,7 +236,8 @@ from repro_torch.qat import (QATConfig, check_budget_invariant,  # noqa: E402
 from repro_torch.serve import (KVCacheSpec, PagedKVCache,      # noqa: E402
                                Request, ServingConfig, ServingEngine,
                                derive_kv_spec)
-from repro_torch.tree import leaves                          # noqa: E402
+from repro_torch.tree import (flatten, leaves, tree_map,     # noqa: E402
+                              unflatten)
 
 DEV = torch.device("cuda")
 BATCH = 256
@@ -903,6 +938,9 @@ def time_flash_attention(dt) -> dict:
             is_causal=True, enable_gqa=True).transpose(1, 2)
     wrapper = time_ms(kernel, 10)
     ms = device_ms(kernel, GRAPH_LAUNCHES)
+    # the training forward: the same kernel writing its log-sum-exp
+    ms_lse = device_ms(lambda: flash_attention_fwd_lse(q, k, v),
+                       GRAPH_LAUNCHES)
     plain = time_ms(lambda: flash_attention_ref(q, k, v), 3, warmup=1)
     lib = time_ms(library, 10)
     lib_diff = float((library().double() - kernel().double()).abs().max())
@@ -914,7 +952,8 @@ def time_flash_attention(dt) -> dict:
                      ALU_OPS_PER_S if dt == torch.float32
                      else BF16_OPS_PER_S)
     return dict(shape=f"{str(dt)[6:]} B{B} S{S} H{H} KV{KV} hd{hd} causal",
-                ms=ms, tflops=ops / ms / 1e9, wrapper_ms=wrapper,
+                ms=ms, tflops=ops / ms / 1e9, ms_with_lse=ms_lse,
+                wrapper_ms=wrapper,
                 plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib,
                 library_tflops=ops / lib / 1e9,
                 library="F.scaled_dot_product_attention(is_causal=True, "
@@ -923,6 +962,81 @@ def time_flash_attention(dt) -> dict:
                 bound_peak="989 TFLOP/s bf16 tensor cores"
                 if dt != torch.float32 else "67 TFLOP/s float32 (exact "
                 "float32 has no tensor-core path)")
+
+
+def time_flash_attention_bwd(dt) -> dict:
+    """The three backward kernels at ``FA_LAYER`` (causal): each one's
+    device time (CUDA-graph replays), one eager wrapper call, its bound
+    and its plain version; the library call is SDPA's backward (all three
+    gradients, with autograd, backward only)."""
+    L = FA_LAYER
+    B, S, H, KV, hd = L["B"], L["S"], L["H"], L["KV"], L["hd"]
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    q = torch.randn((B, S, H, hd), generator=gen, device=DEV).to(dt)
+    k = torch.randn((B, S, KV, hd), generator=gen, device=DEV).to(dt)
+    v = torch.randn((B, S, KV, hd), generator=gen, device=DEV).to(dt)
+    dout = torch.randn((B, S, H, hd), generator=gen, device=DEV).to(dt)
+    out, lse = flash_attention_fwd_lse(q, k, v)
+    delta = bwd_delta(out, dout)
+    kw = dict(causal=True, window=0, q_offset=0, logit_cap=0.0)
+    fns = {
+        "flash_attention_bwd_delta": lambda: bwd_delta(out, dout),
+        "flash_attention_bwd_dkdv":
+            lambda: bwd_dkdv(q, k, v, dout, lse, delta, **kw),
+        "flash_attention_bwd_dq":
+            lambda: bwd_dq(q, k, v, dout, lse, delta, **kw)}
+    plain_bwd = time_ms(lambda: flash_attention_bwd_ref(
+        q, k, v, out, lse, dout), 2, warmup=1)
+    plain = {"flash_attention_bwd_delta": time_ms(
+        lambda: (dout.float() * out.float()).sum(-1), 5),
+        "flash_attention_bwd_dkdv": plain_bwd,
+        "flash_attention_bwd_dq": plain_bwd}
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_grad = dout.transpose(1, 2)
+
+    def library():      # timed here only; the port never calls it
+        return torch.autograd.grad(lib_out, (qt, kt, vt), lib_grad,
+                                   retain_graph=True)
+    lib_ms = time_ms(library, 5)
+    size = q.element_size()
+    n = q.numel()
+    fwd_ops = 4.0 * B * H * hd * (S * (S + 1) // 2)
+    peak = ALU_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
+    # bytes: each input read once, each output written once; operations:
+    # of the backward's five products of the forward's size, dK/dV makes
+    # S, dP, dV and dK (2x the forward's), dQ makes dQ (0.5x)
+    work = {"flash_attention_bwd_delta": (2 * n * size + 4 * B * H * S, 0),
+            "flash_attention_bwd_dkdv": (
+                (2 * n + 2 * k.numel()) * size + 8 * B * H * S
+                + 2 * k.numel() * size, 2.0 * fwd_ops),
+            "flash_attention_bwd_dq": (
+                (2 * n + 2 * k.numel()) * size + 8 * B * H * S + n * size,
+                0.5 * fwd_ops)}
+    rows = {}
+    for name, fn in fns.items():
+        ms = device_ms(fn, GRAPH_LAUNCHES)
+        b_ms, by = bound(*work[name], peak)
+        rows[name] = dict(
+            shape=f"{str(dt)[6:]} B{B} S{S} H{H} KV{KV} hd{hd} causal",
+            ms=ms, wrapper_ms=time_ms(fn, 3), plain_ms=plain[name],
+            bound_ms=b_ms, bound_by=by,
+            library_ms=None if name == "flash_attention_bwd_delta"
+            else lib_ms)
+    total = sum(r["ms"] for r in rows.values())
+    b_total, _ = bound(0, 2.5 * fwd_ops, peak)
+    return dict(dtype=str(dt)[6:], kernels=rows, backward_ms=total,
+                backward_tflops=2.5 * fwd_ops / total / 1e9,
+                backward_bound_ms=b_total, library_backward_ms=lib_ms,
+                library_tflops=2.5 * fwd_ops / lib_ms / 1e9,
+                plain_backward_ms=plain_bwd,
+                library="F.scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True) backward (dq, dk, dv) by "
+                        "torch.autograd.grad",
+                note="library_ms of dkdv and dq: SDPA's whole backward; "
+                     "plain_ms of dkdv and dq: the whole plain backward")
 
 
 def phase_kernel_times(configs) -> dict:
@@ -986,7 +1100,9 @@ def phase_kernel_times(configs) -> dict:
             time_quantize(rng, BATCH, 784, np.float32),
         ],
         flash_attention=[time_flash_attention(torch.bfloat16),
-                         time_flash_attention(torch.float32)])
+                         time_flash_attention(torch.float32)],
+        flash_attention_bwd=[time_flash_attention_bwd(torch.bfloat16),
+                             time_flash_attention_bwd(torch.float32)])
 
 
 # --------------------------------------------------------------------------
@@ -2453,6 +2569,384 @@ def phase_serve(card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase: lm_train — the LM's gradient through the backward kernels, and
+# training at full width through launch/train.py
+# --------------------------------------------------------------------------
+
+# (name, B, Sq, Sk, H, KV, hd, keywords): each in float32, bfloat16 and
+# float16.  hd 64, 80, 128, 256; GQA groups 1 and 6; Sq = Sk and Sq < Sk
+# with q_offset; window and logit_cap (gemma2); lengths no tile divides;
+# rows that see no key; a batch whose B x H fills the card
+FA_BWD_GRID = [
+    ("g6 hd128 ragged", 1, 200, 200, 12, 2, 128, {}),
+    ("g1 hd64 cap", 2, 130, 130, 4, 4, 64, dict(logit_cap=30.0)),
+    ("g6 hd80 window", 1, 150, 150, 6, 1, 80, dict(window=37)),
+    ("hd256 window cap", 1, 100, 100, 4, 2, 256,
+     dict(window=40, logit_cap=50.0)),
+    ("g6 q_offset", 2, 70, 197, 6, 1, 128, dict(q_offset=127)),
+    ("q_offset window cap", 1, 33, 97, 6, 6, 64,
+     dict(q_offset=64, window=16, logit_cap=30.0)),
+    ("rows that see no key", 1, 16, 32, 4, 2, 64,
+     dict(q_offset=64, window=8)),
+    ("not causal", 1, 40, 70, 2, 1, 64, dict(causal=False, window=12)),
+    ("fills the card", 16, 256, 256, 12, 2, 128, {}),
+]
+#: the kernel's lse against the plain one, relative to max(1, |lse|)
+LSE_TOL = 1e-5
+#: kernel (a)'s D against rowsum(dO*out) in float32, relative to the row's
+#: sum of |dO*out| (the same float32 products summed in another order)
+DELTA_TOL = 1e-5
+#: the full-width gradient: float32, B x S, every leaf within this share
+#: of its largest element of the gradient through the plain attention
+LM_GRAD = (1, 1024)
+LM_GRAD_TOL = 1e-4
+#: training through launch/train.py at published widths, bf16 params and
+#: float32 masters: the global batch and length (4 x 2048 in 2
+#: microbatches ran out of the card's 80 GB, so the batch is halved), the
+#: microbatches, the steps and the checkpoint interval, the warm steps
+#: left out of the median
+LM_TRAIN = dict(batch=2, seq=2048, microbatches=2, steps=20, ckpt_every=10,
+                warm=3)
+
+
+def bwd_grid_case(name, B, Sq, Sk, H, KV, hd, dt, kw, gen) -> dict:
+    """One case: the forward's lse against the plain one; D of kernel
+    (a) against rowsum(dO*out); dq, dk, dv of the backward kernels
+    against the plain backward (same out and lse)
+    within ``grad_tolerance`` and bit-equal over two calls; the distance
+    to float64 autograd through ``flash_attention_ref``, reported."""
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=DEV).to(dt)
+    k = torch.randn((B, Sk, KV, hd), generator=gen, device=DEV).to(dt)
+    v = torch.randn((B, Sk, KV, hd), generator=gen, device=DEV).to(dt)
+    dout = torch.randn((B, Sq, H, hd), generator=gen, device=DEV).to(dt)
+    what = f"{name} {str(dt)[6:]} B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} {kw}"
+    out, lse = flash_attention_fwd_lse(q, k, v, **kw)
+    lse_p = flash_attention_lse_ref(q, k, **kw)
+    dead = lse_p < DEAD_LSE
+    check(bool((dead == (lse < DEAD_LSE)).all()),
+          f"{what}: the kernel and the plain lse disagree on which rows "
+          f"see no key")
+    lse_err = float(((lse - lse_p).abs() / lse_p.abs().clamp_min(1.0))
+                    [~dead].max()) if bool((~dead).any()) else 0.0
+    check(lse_err <= LSE_TOL, f"{what}: lse {lse_err} from the plain one")
+    before = {n: _build.LAUNCH_COUNTS[n] for n in BWD_KERNELS}
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    check(all(_build.LAUNCH_COUNTS[n] == before[n] + 1
+              for n in BWD_KERNELS), f"{what}: not one launch per kernel")
+    again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: two calls of the backward differ")
+    # kernel (a) alone: D against rowsum(dO*out) in float32, each row
+    # within DELTA_TOL of the sum of its terms' magnitudes
+    prod = dout.float() * out.float()
+    d_plain = prod.sum(-1).permute(0, 2, 1)
+    d_err = (bwd_delta(out, dout) - d_plain).abs()
+    check(bool((d_err <= DELTA_TOL * prod.abs().sum(-1).permute(
+        0, 2, 1)).all()), f"{what}: D differs from rowsum(dO*out) (max abs "
+        f"err {float(d_err.max())})")
+    want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    errs = {}
+    for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
+        check(g.dtype == dt and g.shape == w.shape
+              and bool(torch.isfinite(g).all()),
+              f"{what}: {gname} wrong in type, shape or value")
+        d = (g.double() - w.double()).abs()
+        check(bool((d <= grad_tolerance(w)).all()),
+              f"{what}: {gname} differs from the plain backward (max abs "
+              f"err {float(d.max())}, at max|g| {float(w.abs().max())})")
+        errs[gname] = float(d.max())
+    # float64 autograd through the plain forward: the distance, reported
+    x64 = [t.double().requires_grad_(True) for t in (q, k, v)]
+    g64 = torch.autograd.grad(flash_attention_ref(*x64, **kw), x64,
+                              dout.double())
+    f64 = [float((g.double() - w).abs().max() / w.abs().max().clamp_min(
+        1e-30)) for g, w in zip(got, g64)]
+    return dict(max_abs_err={
+        "flash_attention_bwd_delta": float(d_err.max()),
+        "flash_attention_bwd_dkdv": max(errs["dk"], errs["dv"]),
+        "flash_attention_bwd_dq": errs["dq"]}, lse_rel_err=lse_err,
+        rel_err_vs_float64_autograd=max(f64))
+
+
+def grid_flash_attention_bwd() -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    L = FA_LAYER
+    grid = [(name, B, Sq, Sk, H, KV, hd, dt, kw)
+            for name, B, Sq, Sk, H, KV, hd, kw in FA_BWD_GRID
+            for dt in (torch.float32, torch.bfloat16, torch.float16)]
+    # the slice's real layer shape
+    grid += [("layer", L["B"], L["S"], L["S"], L["H"], L["KV"], L["hd"], dt,
+              {}) for dt in (torch.float32, torch.bfloat16)]
+    worst = dict(max_abs_err={n: 0.0 for n in BWD_KERNELS},
+                 lse_rel_err=0.0, rel_err_vs_float64_autograd={})
+    for case in grid:
+        r = bwd_grid_case(*case, gen)
+        for n in BWD_KERNELS:
+            worst["max_abs_err"][n] = max(worst["max_abs_err"][n],
+                                          r["max_abs_err"][n])
+        worst["lse_rel_err"] = max(worst["lse_rel_err"], r["lse_rel_err"])
+        by = worst["rel_err_vs_float64_autograd"]
+        dtn = str(case[7])[6:]
+        by[dtn] = max(by.get(dtn, 0.0), r["rel_err_vs_float64_autograd"])
+    torch.cuda.synchronize()
+    worst["cases"] = len(grid)
+    return worst
+
+
+def lm_grad_check() -> dict:
+    """qwen2-1.5b at full width in float32: ``Model.loss``'s gradient with
+    the kernels (one forward and three backward launches per layer)
+    against the gradient through the plain attention, leaf by leaf."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=torch.float32)
+    model = lm_model(cfg)
+    B, S = LM_GRAD
+    toks = lm_tokens(cfg, B, S + 1)
+    flat, spec = flatten(model.param_tree())
+
+    def grads():
+        live = [t.detach().requires_grad_(True) for t in flat]
+        loss = model.loss(unflatten(spec, live), toks[:, :-1], toks[:, 1:])
+        return float(loss.detach()), torch.autograd.grad(loss, live)
+    counted = ("flash_attention",) + BWD_KERNELS
+    before = {n: _build.LAUNCH_COUNTS[n] for n in counted}
+    loss_k, g_k = grads()
+    launches = {n: _build.LAUNCH_COUNTS[n] - before[n] for n in counted}
+    check(all(launches[n] == cfg.n_layers for n in counted),
+          f"float32 loss and gradient: launches {launches}, not "
+          f"{cfg.n_layers} of each kernel")
+    with plain_attention():
+        loss_p, g_p = grads()
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        check(bool(torch.isfinite(a).all()) and err <= LM_GRAD_TOL * scale,
+              f"float32 gradient, leaf {i} {tuple(b.shape)}: kernels vs "
+              f"plain attention {err} > {LM_GRAD_TOL} * {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    n_leaves = len(flat)
+    del model, flat, g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(dtype="float32", B=B, S=S, loss_kernels=loss_k,
+                loss_plain=loss_p, leaves=n_leaves,
+                max_rel_err_per_leaf=worst, bar=LM_GRAD_TOL,
+                launches=launches)
+
+
+def train_argv(steps: int, ckpt_dir=None) -> list:
+    t = LM_TRAIN
+    argv = ["--arch", LM_ARCH, "--steps", str(steps), "--batch",
+            str(t["batch"]), "--seq", str(t["seq"]), "--microbatches",
+            str(t["microbatches"]), "--log-every", "1", "--device", "cuda"]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", str(ckpt_dir), "--ckpt-every",
+                 str(t["ckpt_every"])]
+    return argv
+
+
+def train_lines_ok(text: str, steps: int) -> bool:
+    """The reference's lines: one per step (``--log-every 1``), then the
+    loss summary."""
+    lines = text.splitlines()
+    return len(lines) == steps + 1 and all(
+        re.fullmatch(r"step +\d+ loss \d+\.\d{4} gnorm \d+\.\d{3} lr "
+                     r"\d\.\d{2}e[-+]\d{2} \(\d+\.\ds\)", ln)
+        for ln in lines[:-1]) and lines[-1].startswith("loss ")
+
+
+def device_families(by_kernel: dict) -> dict:
+    """Device ms of a profile's kernels by family: the flash forward,
+    each backward kernel, cuBLAS, the rest."""
+    fam = dict(flash_forward=0.0, **{n: 0.0 for n in BWD_KERNELS},
+               cublas=0.0, other=0.0)
+    names = {"flash_bwd_delta": "flash_attention_bwd_delta",
+             "flash_bwd_dkdv": "flash_attention_bwd_dkdv",
+             "flash_bwd_dq": "flash_attention_bwd_dq",
+             "flash_kernel": "flash_forward"}
+    for kernel, (ms, _) in by_kernel.items():
+        key = next((v for k, v in names.items() if k in kernel), None)
+        if key is None:
+            key = "cublas" if any(w in kernel.lower() for w in (
+                "gemm", "nvjet", "cutlass", "xmma", "cublas")) else "other"
+        fam[key] += ms
+    return fam
+
+
+class _Killed(Exception):
+    """Stands for the process being killed (``lm_train_run``)."""
+
+
+@contextlib.contextmanager
+def killed_at(step: int):
+    """``launch.train`` runs as if killed when it reaches ``step``: its
+    pipeline raises there (after the checkpoint of the step before)."""
+    real = lm_trainer.TokenPipeline
+
+    class Killed(real):
+        def batch_at(self, s):
+            if s == step:
+                raise _Killed
+            return super().batch_at(s)
+    lm_trainer.TokenPipeline = Killed
+    try:
+        yield
+    finally:
+        lm_trainer.TokenPipeline = real
+
+
+def lm_train_run(card: str) -> dict:
+    """``launch.train`` at published widths under deterministic
+    algorithms (cuBLAS's fixed workspace set for this check only).  A
+    straight run of ``steps`` steps: the reference's lines, one forward
+    and three backward launches per layer and microbatch, a falling loss
+    (the mean of the last 5 below that of the first 5), ms per step (the
+    median after the warm steps), tokens/s, the model-FLOP share, peak
+    memory, one more step profiled; its final state is kept on the host.
+    Then the same run with a checkpoint every ``ckpt_every`` steps, killed
+    when it reaches step ``ckpt_every`` (so its last checkpoint is the
+    middle one, as if the final one had been deleted), and the same
+    command again: it resumes there, and its final state equals the
+    straight run's bit for bit.  (The runs call ``launch.train.run``, the
+    body of ``main``, which hands back the state; a checkpoint of this
+    state is 21.6 GB, so the runs write two and read one.)"""
+    t = LM_TRAIN
+    cfg = get_config(LM_ARCH)
+    counted = ("flash_attention",) + BWD_KERNELS
+    prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    prev_mode = torch.are_deterministic_algorithms_enabled()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        before = {n: _build.LAUNCH_COUNTS[n] for n in counted}
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            first = lm_trainer.run(train_argv(t["steps"]))
+        peak = torch.cuda.max_memory_allocated()
+        launches = {n: _build.LAUNCH_COUNTS[n] - before[n] for n in counted}
+        per_run = cfg.n_layers * t["microbatches"] * t["steps"]
+        check(all(launches[n] == per_run for n in counted),
+              f"training: launches {launches}, not {per_run} of each "
+              f"kernel ({cfg.n_layers} layers x {t['microbatches']} "
+              f"microbatches x {t['steps']} steps)")
+        check(train_lines_ok(printed.getvalue(), t["steps"]),
+              f"training printed {printed.getvalue()[:300]!r}")
+        losses = first.losses
+        first5 = statistics.mean(losses[:5])
+        last5 = statistics.mean(losses[-5:])
+        check(all(math.isfinite(x) for x in losses) and last5 < first5,
+              f"training: the loss did not fall ({first5} -> {last5})")
+        step_s = statistics.median(first.step_seconds[t["warm"]:])
+        prof = device_profile(lambda: first.step_fn(
+            first.state, first.pipeline.batch_at(t["steps"])))
+        kept = tree_map(lambda x: None if x is None else
+                        x.detach().cpu(), first.state)
+        first_s = time.perf_counter() - t0
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = train_argv(t["steps"], tmp)
+            t1 = time.perf_counter()
+            with killed_at(t["ckpt_every"]), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                try:
+                    lm_trainer.run(argv)
+                except _Killed:
+                    pass
+            gc.collect()
+            torch.cuda.empty_cache()
+            middle = pathlib.Path(tmp, f"ckpt_{t['ckpt_every']:08d}.npz")
+            check(sorted(os.listdir(tmp)) == [middle.name],
+                  f"the killed run left {sorted(os.listdir(tmp))}")
+            size = middle.stat().st_size
+            killed_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                again = lm_trainer.run(argv)
+            again_s = time.perf_counter() - t1
+            head = printed.getvalue().splitlines()[0]
+            check(again.start_step == t["ckpt_every"] and head ==
+                  f"resumed from {middle} at step {t['ckpt_every']}",
+                  f"the second run did not resume at step "
+                  f"{t['ckpt_every']}: {head!r}")
+            pairs = [(a, b) for a, b in zip(leaves(kept),
+                                            leaves(again.state))
+                     if a is not None or b is not None]
+            # compared on the card: a copy to it is faster than one from it
+            check(pairs and all(
+                a is not None and b is not None
+                and torch.equal(a.to(b.device), b.detach())
+                for a, b in pairs),
+                "the resumed run's state differs from the straight run's")
+            del again
+    finally:
+        torch.use_deterministic_algorithms(prev_mode)
+        if prev_env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_env
+    tokens = t["batch"] * t["seq"]
+    n_active = cfg.active_param_count()
+    return dict(
+        card=card, dtype="bfloat16 params, float32 masters",
+        algorithms="deterministic", **{
+            k: t[k] for k in ("batch", "seq", "microbatches", "steps",
+                              "ckpt_every")},
+        warm_steps=t["warm"], tokens_per_step=tokens, losses=losses,
+        loss_first5=first5, loss_last5=last5, ms_per_step=step_s * 1e3,
+        tokens_per_s=tokens / step_s,
+        model_flop_share=6.0 * n_active * tokens / (step_s * BF16_OPS_PER_S),
+        active_params=n_active, max_memory_allocated=peak,
+        launches=launches,
+        profile=dict(wall_ms=prof["wall_ms"],
+                     device_busy_ms=prof["device_busy_ms"],
+                     idle_share=prof["idle_share"],
+                     kernels=prof["kernels"],
+                     device_ms_by_family=device_families(prof["by_kernel"]),
+                     top_kernels=top_kernels(prof["by_kernel"], 8)),
+        resume=dict(killed_at=t["ckpt_every"], resumed_at=t["ckpt_every"],
+                    tensors_equal=len(pairs), checkpoint_bytes=size),
+        straight_run_s=first_s, killed_run_s=killed_s,
+        resumed_run_s=again_s, seconds=time.perf_counter() - t0)
+
+
+def phase_lm_train(card: str) -> dict:
+    t_phase = time.perf_counter()
+    gc.collect()                      # the earlier phases' models
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.vocab) == (28, 1536, 12, 2, 128, 151936),
+          f"{LM_ARCH} is not at its published width")
+    t0 = time.perf_counter()
+    grid = grid_flash_attention_bwd()
+    grid["seconds"] = time.perf_counter() - t0
+    # counts to 0 just before this path (the grid's launches, which hold
+    # the kernels against their plain versions, do not count), read just
+    # after
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    grad = lm_grad_check()
+    grad["seconds"] = time.perf_counter() - t0
+    train = lm_train_run(card)
+    return dict(phase="lm_train", arch=LM_ARCH, card=card, grid=grid,
+                gradient=grad, train=train,
+                seconds=time.perf_counter() - t_phase,
+                note="ms_per_step: host clock, median after the warm "
+                     "steps, each step ending when its loss reaches the "
+                     "host, under deterministic algorithms; "
+                     "model_flop_share: 6 N_active tokens / (step s x "
+                     "989e12); the profile: one more step of the same "
+                     "run",
+                launches={k: _build.LAUNCH_COUNTS[k]
+                          for k in ("flash_attention",) + BWD_KERNELS})
+
+
+# --------------------------------------------------------------------------
 
 KERNEL_META = {
     "int_matmul": dict(
@@ -2468,6 +2962,10 @@ KERNEL_META = {
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:66"),
 }
+#: the backward kernels: no TPU kernel; the reference differentiates its
+#: plain scanned attention with jax.vjp
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+BWD_REPLACES = "src/repro/models/attention.py:66"
 
 
 def main() -> None:
@@ -2494,8 +2992,13 @@ def main() -> None:
           all(serve["launches"][k] == 0
               for k in ("int_matmul", "multithreshold", "quantize")),
           f"serve: launches {serve['launches']}")
+    train = phase_lm_train(env["nvidia_smi"])
+    emit(train)
+    phases = dict(main_path=main_path, sira_flow=sira, qat_chain=qat,
+                  lm_prefill=lm, lm_families=fam, serve=serve,
+                  lm_train=train)
     launches = dict(main_path["launches"], **lm["launches"])
-    for phase in (fam, serve):
+    for phase in (fam, serve, train):
         launches["flash_attention"] += phase["launches"]["flash_attention"]
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -2504,17 +3007,26 @@ def main() -> None:
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"],
             launches=launches[name],
-            launches_by_path=dict(
-                main_path=main_path["launches"].get(name, 0),
-                sira_flow=sira["launches"].get(name, 0),
-                qat_chain=qat["launches"].get(name, 0),
-                lm_prefill=lm["launches"].get(name, 0),
-                lm_families=fam["launches"].get(name, 0),
-                serve=serve["launches"].get(name, 0)),
+            launches_by_path={k: ph["launches"].get(name, 0)
+                              for k, ph in phases.items()},
             max_abs_err=grid[name]["max_abs_err"], ms=t["ms"],
-            wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"],
-            shape=t["shape"]))
+            wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], shape=t["shape"]))
+    for name in BWD_KERNELS:
+        t = times["flash_attention_bwd"][0]["kernels"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=BWD_SOURCE,
+            replaces=BWD_REPLACES,
+            note="no TPU kernel: the reference differentiates its plain "
+                 "attention with jax.vjp",
+            launches=train["launches"][name],
+            launches_by_path={k: ph["launches"].get(name, 0)
+                              for k, ph in phases.items()},
+            max_abs_err=train["grid"]["max_abs_err"][name], ms=t["ms"],
+            wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], shape=t["shape"]))
     emit(dict(kernels=kernels))
     print(env["nvidia_smi"], flush=True)
     emit(dict(ok=True, device=dict(

@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("int_matmul.cu", "multithreshold.cu", "quantize.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu")
 #: headers the sources include: part of the build's hash, so an edit to
 #: one rebuilds the library
 HEADERS = ("hopper.cuh",)
@@ -116,9 +116,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sira_multithreshold.restype = i
     lib.sira_quantize.argtypes = [p, p, p, p, ll, ll, i, i, i, i, i, p]
     lib.sira_quantize.restype = i
-    lib.sira_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, ll,
-                                         ll, i, f, f, i, p]
+    lib.sira_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                         ll, ll, i, f, f, i, p]
     lib.sira_flash_attention.restype = i
+    lib.sira_flash_bwd_delta.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.sira_flash_bwd_delta.restype = i
+    lib.sira_flash_bwd_dkdv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                        i, i, ll, ll, i, f, f, i, p]
+    lib.sira_flash_bwd_dkdv.restype = i
+    lib.sira_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                      ll, ll, i, f, f, i, p]
+    lib.sira_flash_bwd_dq.restype = i
 
 
 def load() -> ctypes.CDLL:

@@ -81,6 +81,18 @@
 //   a visible key (a fully masked row averages over ALL keys in the
 //   reference): true when causal and 0 <= q_pos < Sk for every row.  The
 //   output is acc / max(l, 1e-30), rounded once to q's type.
+// - lse (optional; null on the inference path): float32 (B, H, Sq), the
+//   float32 kernel's compile-time switch WITH_LSE, a run-time test in the
+//   16-bit kernel's epilogue (which moves its time by nothing measurable,
+//   PERF.md §6); m + ln l of each row in the natural-log domain of the
+//   scaled, capped scores (the 16-bit kernel's m is in the log2 domain:
+//   m ln 2 + ln l).  The backward recomputes P = exp(s - lse) from it.  A
+//   row that sees no key (not possible when causal with 0 <= q_pos < Sk;
+//   possible when q_pos < 0, or when the window ends before key 0 ...
+//   Sk - 1) has m = -1e30 and l = Sk, so its lse is -1e30 (-6.9e29 in the
+//   16-bit kernel): float32 absorbs ln Sk.  The backward reads any lse
+//   below -1e29 as such a row, whose forward averaged v uniformly over
+//   all Sk keys.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -149,12 +161,16 @@ __device__ __forceinline__ void stage(float* dst, const float* src,
     }
 }
 
-template <int HDP>
+// WITH_LSE: also write lse (a compile-time switch, so the inference path
+// compiles to the kernel it was before lse existed: a run-time test in
+// the epilogue cost it ~0.8%, PERF.md §6)
+template <int HDP, bool WITH_LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int Sq, int Sk, int H, int KV, int hd, long long q_offset,
-                 long long window, int causal, float cap, float scale) {
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                 int hd, long long q_offset, long long window, int causal,
+                 float cap, float scale) {
     constexpr int QST = Layout<HDP>::QST;
     constexpr int PST = Layout<HDP>::PST;
     constexpr int COLS = HDP / 16;            // head dims per thread (P.V)
@@ -308,6 +324,10 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
         const int r = q0 + ty * 4 + i;
         if (r >= Sq) continue;
         const float den = fmaxf(l[i], 1e-30f);
+        // every lane of the row's half-warp holds the whole sum l
+        if constexpr (WITH_LSE)
+            if (tx == 0)
+                lse[(long long)blockIdx.y * Sq + r] = m[i] + logf(l[i]);
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
@@ -320,11 +340,12 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-template <int HDP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int H, int KV, int hd,
-                   long long q_offset, long long window, int causal,
-                   float cap, float scale, cudaStream_t stream) {
+template <int HDP, bool WITH_LSE>
+cudaError_t launch_as(const void* q, const void* k, const void* v,
+                      void* out, float* lse, int B, int Sq, int Sk, int H,
+                      int KV, int hd, long long q_offset, long long window,
+                      int causal, float cap, float scale,
+                      cudaStream_t stream) {
     const size_t smem = Layout<HDP>::bytes;
     // above 48 KB dynamic shared memory must be asked for, once per device
     static unsigned configured = 0;
@@ -332,33 +353,46 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     if (dev >= 32 || !((configured >> dev) & 1u)) {
-        err = cudaFuncSetAttribute(flash_kernel_f32<HDP>,
+        err = cudaFuncSetAttribute(flash_kernel_f32<HDP, WITH_LSE>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
         if (err != cudaSuccess) return err;
         if (dev < 32) configured |= 1u << dev;
     }
     const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)(B * H));
-    flash_kernel_f32<HDP><<<grid, THREADS, smem, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq,
-        Sk, H, KV, hd, q_offset, window, causal, cap, scale);
+    flash_kernel_f32<HDP, WITH_LSE><<<grid, THREADS, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
+        Sq, Sk, H, KV, hd, q_offset, window, causal, cap, scale);
     return cudaGetLastError();
 }
 
+template <int HDP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
+                   long long q_offset, long long window, int causal,
+                   float cap, float scale, cudaStream_t stream) {
+    return lse != nullptr
+        ? launch_as<HDP, true>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd,
+                               q_offset, window, causal, cap, scale, stream)
+        : launch_as<HDP, false>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd,
+                                q_offset, window, causal, cap, scale,
+                                stream);
+}
+
 cudaError_t by_width(const void* q, const void* k, const void* v, void* out,
-                     int B, int Sq, int Sk, int H, int KV, int hd,
-                     long long q_offset, long long window, int causal,
-                     float cap, float scale, cudaStream_t s) {
+                     float* lse, int B, int Sq, int Sk, int H, int KV,
+                     int hd, long long q_offset, long long window,
+                     int causal, float cap, float scale, cudaStream_t s) {
     if (hd <= 32)
-        return launch<32>(q, k, v, out, B, Sq, Sk, H, KV, hd, q_offset,
+        return launch<32>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd, q_offset,
                           window, causal, cap, scale, s);
     if (hd <= 64)
-        return launch<64>(q, k, v, out, B, Sq, Sk, H, KV, hd, q_offset,
+        return launch<64>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd, q_offset,
                           window, causal, cap, scale, s);
     if (hd <= 128)
-        return launch<128>(q, k, v, out, B, Sq, Sk, H, KV, hd, q_offset,
-                           window, causal, cap, scale, s);
-    return launch<256>(q, k, v, out, B, Sq, Sk, H, KV, hd, q_offset,
+        return launch<128>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd,
+                           q_offset, window, causal, cap, scale, s);
+    return launch<256>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd, q_offset,
                        window, causal, cap, scale, s);
 }
 
@@ -376,6 +410,7 @@ constexpr int THREADS = 384;    // 2 consumer + 1 producer warpgroup
 constexpr int STAGES = 2;       // K/V ring depth
 constexpr int ROW = 128;        // bytes per row of a 64-column chunk
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HDP>
 struct Cfg {
@@ -648,9 +683,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                T* __restrict__ out, int Sq, int Sk, int H, int KV, int hd,
-                long long q_offset, long long window, int causal, float cap,
-                float scale) {
+                T* __restrict__ out, float* __restrict__ lse, int Sq,
+                int Sk, int H, int KV, int hd, long long q_offset,
+                long long window, int causal, float cap, float scale) {
     using C = Cfg<HDP>;
     constexpr int BK = C::BK;
     extern __shared__ uint8_t smem_raw[];
@@ -768,6 +803,10 @@ flash_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
             const float den = fmaxf(sum, 1e-30f);
             const int row = q0 + 64 * wg + r + 8 * h2;
             if (row >= Sq) continue;
+            // m is in the log2 domain: lse = m ln 2 + ln l
+            if (lse != nullptr && rw.c2 == 0)
+                lse[(long long)blockIdx.y * Sq + row] =
+                    m[h2] * LN2 + logf(sum);
             T* orow = out + (((long long)b * Sq + row) * H + h) * hd;
 #pragma unroll
             for (int p = 0; p < C::PV_PARTS; ++p)
@@ -816,7 +855,7 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, CUtensorMapDataType ty,
 
 template <typename T, int HDP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int H, int KV, int hd,
+                   float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
                    long long q_offset, long long window, int causal,
                    float cap, float scale, cudaStream_t stream) {
     using C = Cfg<HDP>;
@@ -842,27 +881,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     }
     const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)(B * H));
     flash_kernel_tc<T, HDP><<<grid, THREADS, C::smem, stream>>>(
-        mq, mk, mv, (T*)out, Sq, Sk, H, KV, hd, q_offset, window, causal,
-        cap, scale);
+        mq, mk, mv, (T*)out, lse, Sq, Sk, H, KV, hd, q_offset, window,
+        causal, cap, scale);
     return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t by_width(const void* q, const void* k, const void* v, void* out,
-                     int B, int Sq, int Sk, int H, int KV, int hd,
-                     long long q_offset, long long window, int causal,
-                     float cap, float scale, cudaStream_t s) {
+                     float* lse, int B, int Sq, int Sk, int H, int KV,
+                     int hd, long long q_offset, long long window,
+                     int causal, float cap, float scale, cudaStream_t s) {
     // 16-byte rows for TMA, 16-byte aligned bases
     if (hd % 8 != 0 || ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
         return cudaErrorInvalidValue;
     if (hd <= 64)
-        return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KV, hd, q_offset,
-                             window, causal, cap, scale, s);
+        return launch<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd,
+                             q_offset, window, causal, cap, scale, s);
     if (hd <= 128)
-        return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KV, hd, q_offset,
-                              window, causal, cap, scale, s);
-    return launch<T, 256>(q, k, v, out, B, Sq, Sk, H, KV, hd, q_offset,
-                          window, causal, cap, scale, s);
+        return launch<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd,
+                              q_offset, window, causal, cap, scale, s);
+    return launch<T, 256>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd,
+                          q_offset, window, causal, cap, scale, s);
 }
 
 }  // namespace tc
@@ -870,15 +909,19 @@ cudaError_t by_width(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q (B, Sq, H, hd), k/v (B, Sk, KV, hd), out (B, Sq, H, hd), contiguous,
-// all of one type.  dtype_kind: 0 = float32, 1 = float16, 2 = bfloat16
-// (16-bit types need hd % 8 == 0 and 16-byte aligned q, k, v).  causal:
-// 0/1; window: 0 = none; logit_cap: 0 = none; scale: hd^-0.5 as float32.
-// Returns the cudaError_t of the launch (0 = success).
+// all of one type.  lse: null, or float32 (B, H, Sq) that receives each
+// query row's log-sum-exp of its scaled, capped, masked scores (what the
+// backward, flash_attention_bwd.cu, recomputes P from).  dtype_kind: 0 =
+// float32, 1 = float16, 2 = bfloat16 (16-bit types need hd % 8 == 0 and
+// 16-byte aligned q, k, v).  causal: 0/1; window: 0 = none; logit_cap: 0 =
+// none; scale: hd^-0.5 as float32.  Returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int sira_flash_attention(const void* q, const void* k,
-                                    const void* v, void* out, int B, int Sq,
-                                    int Sk, int H, int KV, int hd,
-                                    long long q_offset, long long window,
-                                    int causal, float logit_cap, float scale,
+                                    const void* v, void* out, void* lse,
+                                    int B, int Sq, int Sk, int H, int KV,
+                                    int hd, long long q_offset,
+                                    long long window, int causal,
+                                    float logit_cap, float scale,
                                     int dtype_kind, void* stream) {
     if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
         hd <= 0 || hd > 256 || window < 0 || (long long)B * H > 65535)
@@ -886,17 +929,18 @@ extern "C" int sira_flash_attention(const void* q, const void* k,
     cudaStream_t s = (cudaStream_t)stream;
     switch (dtype_kind) {
     case 0:
-        return (int)f32::by_width(q, k, v, out, B, Sq, Sk, H, KV, hd,
-                                  q_offset, window, causal, logit_cap, scale,
-                                  s);
+        return (int)f32::by_width(q, k, v, out, (float*)lse, B, Sq, Sk, H,
+                                  KV, hd, q_offset, window, causal,
+                                  logit_cap, scale, s);
     case 1:
-        return (int)tc::by_width<__half>(q, k, v, out, B, Sq, Sk, H, KV, hd,
-                                         q_offset, window, causal, logit_cap,
-                                         scale, s);
+        return (int)tc::by_width<__half>(q, k, v, out, (float*)lse, B, Sq,
+                                         Sk, H, KV, hd, q_offset, window,
+                                         causal, logit_cap, scale, s);
     case 2:
-        return (int)tc::by_width<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H,
-                                                KV, hd, q_offset, window,
-                                                causal, logit_cap, scale, s);
+        return (int)tc::by_width<__nv_bfloat16>(q, k, v, out, (float*)lse,
+                                                B, Sq, Sk, H, KV, hd,
+                                                q_offset, window, causal,
+                                                logit_cap, scale, s);
     default:
         return (int)cudaErrorInvalidValue;
     }

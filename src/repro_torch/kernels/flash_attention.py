@@ -13,15 +13,22 @@ prefill's shapes; see the note at the head of the source.  The 16-bit
 kernel rounds the softmax weights P to the input's type before ``P·V``,
 which :func:`tolerance` bounds.  The plain PyTorch version is
 ``ref.flash_attention_ref``; the wrapper uses it only for tensors that lie
-on the CPU.  There is no backward kernel yet, so a CUDA input that
-requires a gradient raises.
+on the CPU, where autograd differentiates it.
+
+On the card, a call that needs a gradient goes through
+:class:`FlashAttention`: its forward is the same kernel, which then also
+writes each query row's log-sum-exp, and its backward is three kernels of
+``csrc/flash_attention_bwd.cu`` (D = rowsum(dO·out), dK/dV, dQ), whose
+plain version is ``ref.flash_attention_bwd_ref``; :func:`grad_tolerance`
+bounds them against it.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .ref import flash_attention_ref
+from .ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
+                  flash_attention_ref)
 
 _KIND = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _BQ = {torch.float32: 64, torch.float16: 128, torch.bfloat16: 128}
@@ -53,17 +60,36 @@ def tolerance(plain: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return ulp(plain) + 2.0 * P_ROUNDING[plain.dtype] * vmax
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: int = 0,
-                        q_offset: int = 0,
-                        logit_cap: float = 0.0) -> torch.Tensor:
-    """q (B, Sq, H, hd); k/v (B, Sk, KV, hd) with H = KV·g → out like q,
-    in q's dtype (float32, float16 or bfloat16; scores and softmax in
-    float32; on the card, bfloat16/float16 need ``hd % 8 == 0``).
+def grad_tolerance(plain: torch.Tensor) -> torch.Tensor:
+    """How far, per element, a gradient of the backward kernels (dq, dk or
+    dv) may lie from the plain backward's ``plain``
+    (``ref.flash_attention_bwd_ref`` on the same inputs, the same ``out``
+    and ``lse``), in float64.
 
-    Query i sits at position ``q_offset + i``; ``causal`` keeps keys at or
-    before it, ``window > 0`` keeps keys less than ``window`` behind it;
-    ``logit_cap > 0`` applies ``cap·tanh(s/cap)`` to the scores."""
+    float32: ``2e-5·(|plain| + max|plain|)``.  Both sum the same float32
+    products in another order: over the query rows of the whole GQA group
+    for dk/dv (24576 terms at S = 4096, g = 6) and over the keys for dq,
+    with dS = P·(dP - D) cancelling; the rounding error of such a sum
+    grows as the root of its length times the size of its partial sums,
+    which the largest gradient bounds: about 5e-6·max|plain| at that
+    length.  The relative term covers the products of one element.
+    bfloat16/float16: ``ulp(plain)`` plus the float32 term.  The kernels
+    widen the 16-bit inputs and compute every product and sum in float32,
+    like the plain backward, and round each gradient once: two float32
+    values that differ by the float32 term round to 16-bit values at most
+    one ulp apart.  The forward's rounding of P before P·V does not enter:
+    both backwards read the same ``out`` and ``lse``.  (A tensor-core
+    backward that rounds P and dS to 16 bits before its products would
+    need a term for that as well.)"""
+    a = plain.double().abs()
+    f32 = 2e-5 * (a + (float(a.max()) if a.numel() else 0.0))
+    if plain.dtype == torch.float32:
+        return f32
+    return ulp(plain) + f32
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}: expected "
@@ -83,18 +109,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{k.device}, v on {v.device}")
     if Sk == 0:
         raise ValueError("flash_attention: no keys (Sk = 0)")
-    window, q_offset = int(window), int(q_offset)
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     if not q.is_cuda:
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset, logit_cap=logit_cap)
-
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention kernel: no backward kernel yet (ROADMAP B4); "
-            "run the forward under torch.no_grad(), or differentiate on "
-            "the CPU, where the plain attention runs")
+        return
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel: head dim {hd} > "
                          f"{MAX_HEAD_DIM}")
@@ -102,22 +120,205 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention kernel: {q.dtype} needs a head "
                          f"dim that is a multiple of 8 (16-byte rows for "
                          f"the tensor-core kernel's copies), got {hd}")
-    if B * Sq * H == 0:
-        return torch.empty_like(q)
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if contiguous on a 16-byte aligned base (the tensor-core
+    kernel's copies need both), else a contiguous copy."""
+    return t if t.is_contiguous() and t.data_ptr() % 16 == 0 \
+        else t.clone(memory_format=torch.contiguous_format)
+
+
+def _forward_kernel(q, k, v, causal, window, q_offset, logit_cap,
+                    with_lse: bool):
+    """One launch of the forward kernel → (out, lse or None); q, k, v
+    contiguous and checked."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
     _build.check_grid("flash_attention", -(-Sq // _BQ[q.dtype]), B * H)
-    # contiguous, on 16-byte aligned bases (the tensor-core kernel's
-    # copies need them): anything else is copied to fresh storage
-    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-               else t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.sira_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, Sq, Sk, H, KV, hd, q_offset, window, int(bool(causal)),
             float(logit_cap), hd ** -0.5, _KIND[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch("flash_attention", err)
     _build.LAUNCH_COUNTS["flash_attention"] += 1
+    return out, lse
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0,
+                        logit_cap: float = 0.0) -> torch.Tensor:
+    """q (B, Sq, H, hd); k/v (B, Sk, KV, hd) with H = KV·g → out like q,
+    in q's dtype (float32, float16 or bfloat16; scores and softmax in
+    float32; on the card, bfloat16/float16 need ``hd % 8 == 0``).
+
+    Query i sits at position ``q_offset + i``; ``causal`` keeps keys at or
+    before it, ``window > 0`` keeps keys less than ``window`` behind it;
+    ``logit_cap > 0`` applies ``cap·tanh(s/cap)`` to the scores.  On the
+    card, a call under grad mode with an input that requires a gradient
+    goes through :class:`FlashAttention` (the backward kernels)."""
+    window, q_offset = int(window), int(q_offset)
+    _check(q, k, v, window)
+    if not q.is_cuda:
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, logit_cap=logit_cap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                    logit_cap)
+    if q.shape[0] * q.shape[1] * q.shape[2] == 0:
+        return torch.empty_like(q)
+    out, _ = _forward_kernel(_dense(q), _dense(k), _dense(v), causal,
+                             window, q_offset, logit_cap, with_lse=False)
     return out
+
+
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, q_offset: int = 0,
+                            logit_cap: float = 0.0):
+    """The forward with its log-sum-exp: → (out, lse (B, H, Sq) float32),
+    what :class:`FlashAttention` saves for the backward (on the card no
+    gradient flows through it); the plain versions for CPU tensors."""
+    window, q_offset = int(window), int(q_offset)
+    _check(q, k, v, window)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              logit_cap=logit_cap)
+    if not q.is_cuda:
+        return (flash_attention_ref(q, k, v, **kw),
+                flash_attention_lse_ref(q, k, **kw))
+    if q.shape[0] * q.shape[1] * q.shape[2] == 0:
+        return (torch.empty_like(q), torch.empty(
+            (q.shape[0], q.shape[2], q.shape[1]), device=q.device))
+    with torch.no_grad():
+        return _forward_kernel(_dense(q), _dense(k), _dense(v), causal,
+                               window, q_offset, logit_cap, with_lse=True)
+
+
+def _bwd_args(q, k, causal, window, q_offset, logit_cap):
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    return (B, Sq, Sk, H, KV, hd, q_offset, window, int(bool(causal)),
+            float(logit_cap), hd ** -0.5, _KIND[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+
+
+def bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """Kernel (a): D = rowsum(dout·out), (B, H, Sq) float32; out and
+    dout contiguous CUDA tensors (B, Sq, H, hd) of one type."""
+    B, Sq, H, hd = out.shape
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=out.device)
+    with torch.cuda.device(out.device):
+        err = _build.load().sira_flash_bwd_delta(
+            out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, Sq, H, hd,
+            _KIND[out.dtype], torch.cuda.current_stream().cuda_stream)
+    _build.check_launch("flash_attention_bwd_delta", err)
+    _build.LAUNCH_COUNTS["flash_attention_bwd_delta"] += 1
+    return delta
+
+
+def bwd_dkdv(q, k, v, dout, lse, delta, *, causal, window, q_offset,
+             logit_cap):
+    """Kernel (b): → (dk, dv) like k, from contiguous CUDA q, k, v, dout
+    and the float32 (B, H, Sq) lse and D."""
+    B, Sq, H, hd = q.shape
+    _build.check_grid("flash_attention_bwd_dkdv", 1, B * k.shape[2])
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _build.load().sira_flash_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_bwd_args(q, k, causal, window, q_offset, logit_cap))
+    _build.check_launch("flash_attention_bwd_dkdv", err)
+    _build.LAUNCH_COUNTS["flash_attention_bwd_dkdv"] += 1
+    return dk, dv
+
+
+def bwd_dq(q, k, v, dout, lse, delta, *, causal, window, q_offset,
+           logit_cap):
+    """Kernel (c): → dq like q, from the inputs of :func:`bwd_dkdv`."""
+    B, Sq, H, hd = q.shape
+    _build.check_grid("flash_attention_bwd_dq", 1, B * H)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _build.load().sira_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_bwd_args(q, k, causal, window, q_offset, logit_cap))
+    _build.check_launch("flash_attention_bwd_dq", err)
+    _build.LAUNCH_COUNTS["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+#: the backward's kernels, one launch each per backward
+BWD_KERNELS = ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+               "flash_attention_bwd_dq")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, q_offset: int = 0,
+                        logit_cap: float = 0.0):
+    """→ (dq, dk, dv) in the inputs' types, from the forward's ``out`` and
+    ``lse`` (:func:`flash_attention_fwd_lse`) and the output gradient
+    ``dout``: three kernel launches on the card (D, dK/dV, dQ; no atomics,
+    so the bits repeat), ``ref.flash_attention_bwd_ref`` for CPU
+    tensors."""
+    window, q_offset = int(window), int(q_offset)
+    _check(q, k, v, window)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              logit_cap=logit_cap)
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype \
+            or lse.shape != (q.shape[0], q.shape[2], q.shape[1]) \
+            or lse.dtype != torch.float32:
+        raise ValueError(
+            f"flash_attention backward: out {out.dtype}{tuple(out.shape)}, "
+            f"dout {dout.dtype}{tuple(dout.shape)}, lse "
+            f"{lse.dtype}{tuple(lse.shape)} do not fit q "
+            f"{q.dtype}{tuple(q.shape)}")
+    if q.shape[0] * q.shape[1] * q.shape[2] == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    q, k, v, out, dout = map(_dense, (q, k, v, out, dout))
+    lse = lse.contiguous()
+    delta = bwd_delta(out, dout)
+    dk, dv = bwd_dkdv(q, k, v, dout, lse, delta, **kw)
+    dq = bwd_dq(q, k, v, dout, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the forward kernel (which also writes
+    the log-sum-exp) and, for the backward, the three kernels of
+    :func:`flash_attention_bwd`.  Handed CPU tensors, it runs the plain
+    forward and backward instead.  Under ``torch.utils.checkpoint`` the
+    forward runs again in the backward pass."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, logit_cap):
+        kw = dict(causal=causal, window=int(window),
+                  q_offset=int(q_offset), logit_cap=logit_cap)
+        if q.is_cuda:
+            q, k, v = _dense(q), _dense(k), _dense(v)
+        out, lse = flash_attention_fwd_lse(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None, None

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels (correctness references).
+"""Plain PyTorch versions of the kernels (correctness references).
 
 They run on any device.  The tests and the CPU device use them; on the
 card they are only what a kernel is held against, never a route of the
@@ -94,6 +94,37 @@ def quantize_ref(x: torch.Tensor, scale: torch.Tensor,
 #: the reference's finite mask value (never -inf: a fully masked row or
 #: tile must stay finite)
 NEG_INF = -1e30
+#: an lse below this marks a query row that sees no key: its lse is
+#: -1e30 + ln Sk, which float32 (and float64) round to -1e30
+DEAD_LSE = -1e29
+
+
+def _work_dtype(q: torch.Tensor) -> torch.dtype:
+    """float32, or float64 for float64 inputs (the float64 oracle)."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, *, causal, window, q_offset, logit_cap):
+    """(q scaled by hd^-0.5 as (B, Sq, KV, g, hd), the capped scores
+    (B, Sq, KV, g, Sk) before the mask, tanh(s/cap) or None, the (Sq, Sk)
+    mask of visible pairs), in the working type."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    wt = _work_dtype(q)
+    qf = (q.to(wt) * hd ** -0.5).reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bqkgs", qf, k.to(wt))
+    t = None
+    if logit_cap:
+        t = torch.tanh(s / logit_cap)
+        s = logit_cap * t
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    return qf, s, t, mask
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -102,25 +133,64 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         logit_cap: float = 0.0) -> torch.Tensor:
     """Materialised-softmax attention, q (B, Sq, H, hd), k/v (B, Sk, KV,
     hd), H = KV·g; query h reads KV head h // g.  All arithmetic in
-    float32 (q cast and scaled by hd^-0.5 before the dot), output in q's
-    dtype.  Query i sits at position ``q_offset + i``, key j at j;
-    ``causal`` keeps keys at or before the query, ``window > 0`` keeps
-    keys less than ``window`` positions behind it."""
+    float32 (float64 for float64 inputs; q cast and scaled by hd^-0.5
+    before the dot), output in q's dtype.  Query i sits at position
+    ``q_offset + i``, key j at j; ``causal`` keeps keys at or before the
+    query, ``window > 0`` keeps keys less than ``window`` positions behind
+    it."""
     B, Sq, H, hd = q.shape
-    _, Sk, KV, _ = k.shape
-    g = H // KV
-    qf = (q.to(torch.float32) * hd ** -0.5).reshape(B, Sq, KV, g, hd)
-    s = torch.einsum("bqkgh,bskh->bqkgs", qf, k.to(torch.float32))
-    if logit_cap:
-        s = logit_cap * torch.tanh(s / logit_cap)
-    q_pos = q_offset + torch.arange(Sq, device=q.device)
-    k_pos = torch.arange(Sk, device=q.device)
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= q_pos[:, None] >= k_pos[None, :]
-    if window:
-        mask &= q_pos[:, None] - k_pos[None, :] < window
+    _, s, _, mask = _scores(q, k, causal=causal, window=window,
+                            q_offset=q_offset, logit_cap=logit_cap)
     s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bqkgs,bskh->bqkgh", p, v.to(torch.float32))
+    o = torch.einsum("bqkgs,bskh->bqkgh", p, v.to(_work_dtype(q)))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            q_offset: int = 0,
+                            logit_cap: float = 0.0) -> torch.Tensor:
+    """The log-sum-exp of each query row's scaled, capped, masked scores,
+    (B, H, Sq) in float32 (float64 for float64 inputs): what the forward
+    kernel writes beside its output for the backward."""
+    B, Sq, H, _ = q.shape
+    _, s, _, mask = _scores(q, k, causal=causal, window=window,
+                            q_offset=q_offset, logit_cap=logit_cap)
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    return torch.logsumexp(s, dim=-1).reshape(B, Sq, H).permute(0, 2, 1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            q_offset: int = 0, logit_cap: float = 0.0):
+    """The gradients (dq, dk, dv) of :func:`flash_attention_ref` at q, k,
+    v for the output gradient ``dout``, from the forward's ``out`` and
+    ``lse`` (B, H, Sq), by the backward kernel's formulas, in float32
+    (float64 for float64 inputs), each in its input's dtype:
+    P = exp(s - lse) on visible pairs, D = rowsum(dout·out),
+    dS = P·(dout·vᵀ - D) (times 1 - tanh²(s_raw/cap) with a cap),
+    dv = Pᵀ·dout, dk = dSᵀ·(q·hd^-0.5), dq = dS·k·hd^-0.5.  A masked pair
+    has dS = 0 and P = 0, but in a row that sees no key (lse below
+    ``DEAD_LSE``) P = 1/Sk: its forward averaged v over every key."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    wt = _work_dtype(q)
+    qf, s, t, mask = _scores(q, k, causal=causal, window=window,
+                             q_offset=q_offset, logit_cap=logit_cap)
+    rows = lse.to(wt).permute(0, 2, 1).reshape(B, Sq, KV, H // KV)[..., None]
+    m = mask[None, :, None, None, :]
+    p = torch.where(m, torch.exp(s - rows), (rows < DEAD_LSE).to(wt) / Sk)
+    do = dout.to(wt).reshape(B, Sq, KV, H // KV, hd)
+    d = (do * out.to(wt).reshape(B, Sq, KV, H // KV, hd)).sum(-1)
+    dv = torch.einsum("bqkgs,bqkgh->bskh", p, do)
+    dp = torch.einsum("bqkgh,bskh->bqkgs", do, v.to(wt))
+    ds = torch.where(m, p * (dp - d[..., None]), 0.0)
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    dk = torch.einsum("bqkgs,bqkgh->bskh", ds, qf)
+    dq = torch.einsum("bqkgs,bskh->bqkgh", ds, k.to(wt)) * hd ** -0.5
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -5,8 +5,10 @@ Counterpart of ``src/repro/models/attention.py``: grouped KV heads, RoPE,
 optional QKV bias, logit soft-capping (gemma2), sliding-window masking for
 local layers.  The reference's prefill is an online-softmax scan over KV
 chunks; here every prefill attention call goes to ``flash_attention``,
-the wrapper of the CUDA kernel (its plain version for CPU tensors).  The
-reference's ``chunk`` only orders the reduction and has no counterpart.
+the wrapper of the CUDA kernel (its plain version for CPU tensors); when
+the call needs a gradient, the wrapper's autograd function adds the
+backward kernels.  The reference's ``chunk`` only orders the reduction
+and has no counterpart.
 Decode has no kernel in the reference either and stays plain PyTorch; it
 writes the new key/value into the cache **in place** and returns the same
 cache.  ``paged_attention`` (the serving path, ``serve/engine.py``) is

@@ -22,11 +22,13 @@ shared attention block applied after every ``attn_every`` layers):
                                    serving path against a paged KV cache
                                    (``serve/``), plain PyTorch, the pools
                                    written in place
-  * ``loss(params, ...)``        → mean token cross-entropy, differentiable
-                                   on the CPU (plain attention); on a card
-                                   the flash-attention wrapper raises for
-                                   inputs that need a gradient (no backward
-                                   kernel yet, ROADMAP B4)
+  * ``loss(params, ...)``        → mean token cross-entropy,
+                                   differentiable: on a card every
+                                   attention layer's gradient comes from
+                                   the flash-attention backward kernels
+                                   (``kernels/flash_attention.py
+                                   FlashAttention``), on the CPU autograd
+                                   differentiates the plain attention
   * ``param_tree()``             → the weights as a nested dict of tensors,
                                    the params a train step takes
 

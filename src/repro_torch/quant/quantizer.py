@@ -146,17 +146,48 @@ PACKABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
             "in_proj", "out_proj", "lm_head")
 
 
-def pack_weights_int8(params: Any, min_size: int = 1 << 12) -> Any:
+def pack_weights_int8(params: Any, min_size: int = 1 << 12,
+                      cfg: Any = None) -> Any:
     """Pack every 2D+ float weight named in ``PACKABLE`` as ``{q: int8,
     s: float32 per output channel}`` (weight-only W8).  Small tensors
     (norms, biases) stay float.  ``params`` is a nested dict/list tree of
-    tensors; a new tree is returned."""
-    def pack(key: str, w):
+    tensors; a new tree is returned.
+
+    ``min_size`` is held, as in the reference, against the size of the
+    array the reference keeps for the leaf, which stacks its layers on a
+    leading axis: a leaf of the ``layers`` list counts ``len(layers)``
+    times its own size, half that for gemma2 (a dense-family ``cfg`` with
+    ``sliding_window``: the reference stacks the local and the global
+    layers apart), and an expert array counts the reference's pad experts
+    too (``cfg.n_experts_padded``).  Every other leaf counts its own size.
+    A tree with a ``layers`` list therefore needs the model's ``cfg``
+    (``Model.cfg``); without it this raises ``ValueError``."""
+    layers = params.get("layers") if isinstance(params, dict) else None
+    n_stack = 1
+    if isinstance(layers, (list, tuple)):
+        if cfg is None:
+            raise ValueError(
+                "pack_weights_int8: a tree with a 'layers' list needs the "
+                "model's cfg, which says how the reference stacks them")
+        n_stack = len(layers)
+        if cfg.family in ("dense", "vlm", "audio") and cfg.sliding_window:
+            n_stack //= 2
+
+    def stacked_size(path: Tuple[str, ...], w: torch.Tensor) -> int:
+        if not path or path[0] != "layers":
+            return w.numel()
+        if "experts" in path and cfg.moe.n_experts:
+            return n_stack * w.numel() // cfg.moe.n_experts \
+                * cfg.n_experts_padded
+        return n_stack * w.numel()
+
+    def pack(path: Tuple[str, ...], w):
         if isinstance(w, dict):
-            return {k: pack(k, v) for k, v in w.items()}
+            return {k: pack(path + (k,), v) for k, v in w.items()}
         if isinstance(w, (list, tuple)):
-            return [pack(key, v) for v in w]
-        if key not in PACKABLE or w.dim() < 2 or w.numel() < min_size \
+            return [pack(path, v) for v in w]
+        if not path or path[-1] not in PACKABLE or w.dim() < 2 \
+                or stacked_size(path, w) < min_size \
                 or w.dtype not in (torch.float32, torch.bfloat16):
             return w
         # per-output-channel scale over the fan-in axis only
@@ -166,4 +197,4 @@ def pack_weights_int8(params: Any, min_size: int = 1 << 12) -> Any:
         q = torch.clamp(torch.round(wf / sc), -128, 127).to(torch.int8)
         return {"q": q, "s": sc}
 
-    return pack("", params)
+    return pack((), params)

@@ -18,7 +18,8 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-from typing import Any, Dict, Optional, Tuple
+import zipfile
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,27 +27,46 @@ import torch
 from ..tree import flatten, structure, unflatten
 
 
-def _host(leaf: Any) -> np.ndarray:
+def _host(leaf: Any, staging: Optional[torch.Tensor] = None) -> np.ndarray:
+    """The leaf as a host array.  A CUDA leaf is copied into ``staging``
+    (pinned) when it is given, and the array is then a view of it, valid
+    until the next leaf is copied there."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        if t.is_cuda and staging is not None:
+            n = t.numel() * t.element_size()
+            t = staging[:n].view(t.dtype).view(t.shape).copy_(t)
+        else:
+            t = t.cpu()
         if t.dtype == torch.bfloat16:        # numpy has no bfloat16
             t = t.view(torch.int16)
         return t.numpy()
     return np.asarray(leaf)
 
 
-def _flatten_state(state: Any) -> Dict[str, np.ndarray]:
-    flat = {}
+def _entries(state: Any, extra: Optional[Dict[str, Any]]
+             ) -> Iterator[Tuple[str, np.ndarray]]:
+    """The npz's arrays, in order, each leaf brought to the host only when
+    its turn comes: a state of tens of GB is never held on the host
+    whole."""
     leaves, _ = flatten(state)
-    flat["__treedef__"] = np.frombuffer(structure(state).encode(),
-                                        dtype=np.uint8)
+    # CUDA leaves come to the host through one pinned buffer, the size of
+    # the largest: a copy from the card into pageable memory is several
+    # times slower, and it would cost tens of seconds at full width
+    sizes = [leaf.numel() * leaf.element_size() for leaf in leaves
+             if isinstance(leaf, torch.Tensor) and leaf.is_cuda]
+    staging = torch.empty(max(sizes), dtype=torch.uint8,
+                          pin_memory=True) if sizes else None
+    yield "__treedef__", np.frombuffer(structure(state).encode(),
+                                       dtype=np.uint8)
     for i, leaf in enumerate(leaves):
-        if leaf is None:
-            continue
-        flat[f"leaf_{i}"] = _host(leaf)
-    flat["__nleaves__"] = np.asarray(len(leaves))
-    flat["__none_mask__"] = np.asarray([leaf is None for leaf in leaves])
-    return flat
+        if leaf is not None:
+            yield f"leaf_{i}", _host(leaf, staging)
+    yield "__nleaves__", np.asarray(len(leaves))
+    yield "__none_mask__", np.asarray([leaf is None for leaf in leaves])
+    if extra:
+        yield "__extra__", np.frombuffer(json.dumps(extra).encode(),
+                                         dtype=np.uint8)
 
 
 def save_checkpoint(directory: str, step: int, state: Any,
@@ -54,14 +74,16 @@ def save_checkpoint(directory: str, step: int, state: Any,
                     keep: int = 3) -> str:
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
-    flat = _flatten_state(state)
-    if extra:
-        flat["__extra__"] = np.frombuffer(
-            json.dumps(extra).encode(), dtype=np.uint8)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            np.savez(f, **flat)
+            # what np.savez writes (stored .npy members, zip64), one
+            # member at a time
+            with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED,
+                                 allowZip64=True) as zf:
+                for name, arr in _entries(state, extra):
+                    with zf.open(name + ".npy", "w", force_zip64=True) as m:
+                        np.lib.format.write_array(m, arr, allow_pickle=False)
             f.flush()
             os.fsync(f.fileno())
         os.rename(tmp, path)            # atomic on POSIX
@@ -83,10 +105,14 @@ def latest_checkpoint(directory: str) -> Optional[str]:
 def _restore_leaf(arr: np.ndarray, like: Any) -> Any:
     if not isinstance(like, torch.Tensor):
         return arr.astype(like.dtype) if hasattr(like, "dtype") else arr
+    # an array read from the npz is the reader's own: no copy is needed
+    # before torch takes it (at full width that is tens of GB)
     if like.dtype == torch.bfloat16:
-        t = torch.from_numpy(arr.astype(np.int16)).view(torch.bfloat16)
+        t = torch.from_numpy(arr.astype(np.int16, copy=False)).view(
+            torch.bfloat16)
     else:
-        t = torch.from_numpy(np.array(arr, copy=True)).to(like.dtype)
+        t = torch.from_numpy(arr if arr.flags.writeable
+                             else arr.copy()).to(like.dtype)
     return t.to(like.device)
 
 

@@ -5,7 +5,8 @@ Counterpart of ``src/repro/train/train_step.py``.  ``jax.value_and_grad``
 becomes ``torch.autograd.grad`` over the param leaves, which each step
 detaches and marks ``requires_grad`` (the state's tensors are never
 changed in place); the microbatch ``lax.scan`` becomes a loop that
-accumulates float32 grads.  The model protocol is the reference's:
+accumulates float32 grads in place (its own tensors, never the
+state's).  The model protocol is the reference's:
 ``model.init(generator)`` gives the params (or, for the LM
 :class:`~repro_torch.models.transformer.Model`, fills and returns the
 model, whose ``param_tree()`` gives them) and ``model.loss(params,
@@ -19,7 +20,7 @@ import torch
 
 from ..optim.adamw import AdamW, AdamWState
 from ..quant.quantizer import QuantSpec
-from ..tree import flatten, leaves, tree_map, unflatten
+from ..tree import flatten, leaves, unflatten
 from .compression import compress_grads, init_error_feedback
 
 
@@ -88,15 +89,24 @@ def make_train_step(model, optimizer: AdamW, *,
                 (microbatches, a.shape[0] // microbatches) + a.shape[1:])
                 for k, a in batch.items()}
             loss = torch.zeros((), dtype=torch.float32, device=device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=device), state.params)
+            acc = None
             for i in range(microbatches):
                 mb = {k: None if a is None else a[i] for k, a in mbs.items()}
                 l_i, g_i = loss_and_grads(state.params, mb)
                 loss = loss + l_i
-                grads = tree_map(torch.add, grads, g_i)
+                # float32 sums in place: the first microbatch's grads
+                # (exact in float32) start the sum, so no zero tree and
+                # no second tree of sums is ever held
+                if acc is None:
+                    acc = [g.to(torch.float32) for g in leaves(g_i)]
+                else:
+                    for a, g in zip(acc, leaves(g_i)):
+                        a.add_(g)
+                del g_i
             loss = loss / microbatches
-            grads = tree_map(lambda g: g / microbatches, grads)
+            for a in acc:
+                a.div_(microbatches)
+            grads = unflatten(flatten(state.params)[1], acc)
         else:
             loss, grads = loss_and_grads(state.params, batch)
 

@@ -1,0 +1,238 @@
+"""The attention backward of the port on the CPU: the plain backward
+``ref.flash_attention_bwd_ref`` (the backward kernels' formulas), the
+plain log-sum-exp ``ref.flash_attention_lse_ref``, the autograd function
+``flash_attention.FlashAttention`` and the bar ``grad_tolerance``, on
+numpy inputs made from a seed.
+
+- The plain backward against autograd through ``flash_attention_ref``,
+  float64, within 1e-10: the same function, differentiated two ways.
+- The plain backward against ``jax.vjp`` of the reference's own scanned
+  attention (``repro.models.attention.flash_attention``), float32, within
+  1e-5 of each gradient's largest element (float32 sums in another
+  order: an online softmax over chunks against one materialised
+  softmax).
+- The plain lse against ``jax.nn.logsumexp`` of the reference's scores.
+- ``FlashAttention`` through ``torch.utils.checkpoint`` on CPU tensors,
+  where it runs the plain forward and backward: this holds the wiring,
+  not the kernels, which run only on a card (``tests/test_torch_gpu.py``,
+  ``python3 chip_smoke.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro.models.attention import flash_attention as j_model_fa
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import (
+    FlashAttention, flash_attention_bwd, flash_attention_fwd,
+    flash_attention_fwd_lse, grad_tolerance, ulp)
+
+# (B, Sq, Sk, H, KV, hd, keywords): causal, window, q_offset, logit_cap,
+# GQA groups 1 and 3, lengths that no chunk divides
+CASES = {
+    "causal g3": (2, 13, 13, 6, 2, 8, {}),
+    "g1 cap": (1, 17, 17, 2, 2, 8, dict(logit_cap=3.0)),
+    "window": (1, 21, 21, 3, 1, 8, dict(window=5)),
+    "q_offset": (2, 9, 29, 3, 1, 8, dict(q_offset=20)),
+    "q_offset window cap": (1, 11, 37, 6, 2, 16,
+                            dict(q_offset=26, window=7, logit_cap=2.5)),
+    "not causal window": (1, 10, 23, 2, 1, 8,
+                          dict(causal=False, window=6)),
+}
+# rows that see no key (every row of the first case, the rows before
+# position 0 in the second): their forward averages v over all keys (the
+# reference's finite mask)
+DEAD_CASES = {
+    "rows that see no key": (1, 6, 10, 4, 2, 8, dict(q_offset=30,
+                                                      window=4)),
+    "some rows see no key": (1, 8, 12, 2, 1, 8, dict(q_offset=-4)),
+}
+DEFAULTS = dict(causal=True, window=0, q_offset=0, logit_cap=0.0)
+
+
+def _inputs(seed, B, Sq, Sk, H, KV, hd, dtype=np.float64):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(dtype)
+            for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd),
+                          (B, Sq, H, hd))]
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(grad)
+
+
+def _autograd(q, k, v, dout, kw):
+    x = [_t(a, grad=True) for a in (q, k, v)]
+    out = tref.flash_attention_ref(*x, **kw)
+    return out.detach(), torch.autograd.grad(out, x, _t(dout))
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(DEAD_CASES))
+def test_plain_backward_equals_autograd_float64(case):
+    B, Sq, Sk, H, KV, hd, kw = {**CASES, **DEAD_CASES}[case]
+    q, k, v, dout = _inputs(len(case), B, Sq, Sk, H, KV, hd)
+    out, want = _autograd(q, k, v, dout, kw)
+    lse = tref.flash_attention_lse_ref(_t(q), _t(k), **kw)
+    assert lse.dtype == torch.float64 and lse.shape == (B, H, Sq)
+    got = tref.flash_attention_bwd_ref(_t(q), _t(k), _t(v), out, lse,
+                                       _t(dout), **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-10)
+
+
+def test_rows_that_see_no_key_spread_dv_over_every_key():
+    """The forward averages v over all keys for such a row, so each key
+    gets 1/Sk of that row's dout; dq and dk get nothing."""
+    B, Sq, Sk, H, KV, hd, kw = DEAD_CASES["rows that see no key"]
+    q, k, v, dout = map(_t, _inputs(0, B, Sq, Sk, H, KV, hd))
+    out = tref.flash_attention_ref(q, k, v, **kw)
+    lse = tref.flash_attention_lse_ref(q, k, **kw)
+    assert bool((lse < tref.DEAD_LSE).all())
+    dq, dk, dv = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                              **kw)
+    assert not dq.any() and not dk.any()
+    per_kv = dout.reshape(B, Sq, KV, H // KV, hd).sum(dim=(1, 3)) / Sk
+    np.testing.assert_allclose(dv.numpy(), per_kv[:, None].expand(
+        B, Sk, KV, hd).numpy(), rtol=0, atol=1e-12)
+
+
+def _j_scores(q, k, *, causal, window, q_offset, logit_cap):
+    """The reference's scores (``repro.models.attention.flash_attention``'s
+    expression), masked, as (B, Sq, KV, g, Sk)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qf = (q * hd ** -0.5).reshape(B, Sq, KV, H // KV, hd)
+    s = jnp.einsum("bqkgh,bckh->bqkgc", qf, k)
+    if logit_cap:
+        s = logit_cap * jnp.tanh(s / logit_cap)
+    q_pos = q_offset + jnp.arange(Sq)
+    k_pos = jnp.arange(Sk)
+    mask = jnp.ones((Sq, Sk), bool)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    return jnp.where(mask[None, :, None, None, :], s, -1e30)
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(DEAD_CASES))
+def test_plain_lse_matches_jax_logsumexp(case):
+    B, Sq, Sk, H, KV, hd, kw = {**CASES, **DEAD_CASES}[case]
+    q, k, _, _ = _inputs(len(case), B, Sq, Sk, H, KV, hd, np.float32)
+    got = tref.flash_attention_lse_ref(_t(q), _t(k), **kw)
+    assert got.dtype == torch.float32
+    s = _j_scores(jnp.asarray(q), jnp.asarray(k), **{**DEFAULTS, **kw})
+    want = np.asarray(jax.nn.logsumexp(s, axis=-1)).reshape(
+        B, Sq, H).transpose(0, 2, 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_backward_matches_jax_vjp(case):
+    """float32: the plain backward (fed the port's plain out and lse)
+    against ``jax.vjp`` of the reference's scanned attention, chunked by
+    a chunk that divides no length given (the scan takes the largest
+    divisor below it)."""
+    B, Sq, Sk, H, KV, hd, kw = CASES[case]
+    q, k, v, dout = _inputs(len(case) + 1, B, Sq, Sk, H, KV, hd,
+                            np.float32)
+    full = {**DEFAULTS, **kw}
+    _, vjp = jax.vjp(lambda a, b, c: j_model_fa(a, b, c, chunk=4, **full),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    out = tref.flash_attention_ref(tq, tk, tv, **kw)
+    lse = tref.flash_attention_lse_ref(tq, tk, **kw)
+    got = tref.flash_attention_bwd_ref(tq, tk, tv, out, lse, _t(dout),
+                                       **kw)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
+
+
+def _apply(kw):
+    full = {**DEFAULTS, **kw}
+    return lambda q, k, v: FlashAttention.apply(
+        q, k, v, full["causal"], full["window"], full["q_offset"],
+        full["logit_cap"])
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(DEAD_CASES))
+def test_autograd_function_through_checkpoint_on_cpu(case):
+    """``FlashAttention`` under ``checkpoint(use_reentrant=False)`` (the
+    train step's remat): the forward equals the plain one and the
+    gradient equals autograd through the plain forward, float32."""
+    B, Sq, Sk, H, KV, hd, kw = {**CASES, **DEAD_CASES}[case]
+    q, k, v, dout = _inputs(len(case) + 2, B, Sq, Sk, H, KV, hd,
+                            np.float32)
+    x = [_t(a, grad=True) for a in (q, k, v)]
+    out = checkpoint(_apply(kw), *x, use_reentrant=False)
+    got = torch.autograd.grad(out, x, _t(dout))
+    want_out, want = _autograd(q, k, v, dout, kw)
+    assert torch.equal(out.detach(), want_out)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("case", ["causal g3", "q_offset window cap"])
+def test_cpu_wrappers_are_the_plain_versions(case):
+    """On CPU tensors the wrappers run the plain versions, bit for bit,
+    and ``flash_attention_fwd`` stays differentiable through them."""
+    B, Sq, Sk, H, KV, hd, kw = CASES[case]
+    q, k, v, dout = map(_t, _inputs(3, B, Sq, Sk, H, KV, hd, np.float32))
+    out, lse = flash_attention_fwd_lse(q, k, v, **kw)
+    assert torch.equal(out, tref.flash_attention_ref(q, k, v, **kw))
+    assert torch.equal(lse, tref.flash_attention_lse_ref(q, k, **kw))
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(flash_attention_fwd(*x, **kw), x, dout)
+    assert all(g is not None and g.shape == t.shape
+               for g, t in zip(grads, x))
+
+
+def _tiled_dkdv(q, k, v, out, lse, dout, tile, kw):
+    """dk, dv summed over query tiles of ``tile`` rows one after the
+    other, as the dK/dV kernel does (float32)."""
+    dk = dv = 0.0
+    for i in range(0, q.shape[1], tile):
+        sl = slice(i, i + tile)
+        part = tref.flash_attention_bwd_ref(
+            q[:, sl], k, v, out[:, sl], lse[:, :, sl], dout[:, sl],
+            **{**kw, "q_offset": kw.get("q_offset", 0) + i})
+        dk = dk + part[1].float()
+        dv = dv + part[2].float()
+    return dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", ["causal g3", "q_offset window cap"])
+def test_grad_tolerance_covers_another_summation_order(case, dtype):
+    """Summing dk and dv over query tiles (the kernel's order) instead of
+    in one product moves them by float32 rounding only, within
+    ``grad_tolerance``; in 16 bits the bar is at least one ulp."""
+    B, Sq, Sk, H, KV, hd, kw = CASES[case]
+    q, k, v, dout = (_t(a).to(dtype) for a in _inputs(
+        4, B, Sq, Sk, H, KV, hd, np.float32))
+    out, lse = flash_attention_fwd_lse(q, k, v, **kw)
+    _, dk, dv = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    f32 = [t.float() for t in (q, k, v, out, dout)]
+    tk, tv = _tiled_dkdv(f32[0], f32[1], f32[2], f32[3], lse, f32[4], 4,
+                         kw)
+    for plain, tiled in ((dk, tk), (dv, tv)):
+        bar = grad_tolerance(plain)
+        assert bool(((tiled.to(dtype).double() - plain.double()).abs()
+                     <= bar).all())
+        if dtype != torch.float32:
+            assert bool((bar >= ulp(plain)).all())

@@ -1,7 +1,9 @@
 """Tests that need a CUDA device: each hand-written kernel against its
 plain PyTorch version, compiled models (interval- and affine-proven
 plans) against the numpy interpreter, reduced LM prefills (dense, MoE,
-Mamba2, Zamba2) through the flash-attention kernel, accumulator-aware QAT (training, resume,
+Mamba2, Zamba2) through the flash-attention kernel, the attention
+backward kernels, the LM's gradient and ``launch.train.main`` (remat, a
+bit-exact resume), accumulator-aware QAT (training, resume,
 the exported model through the kernels), and the serving path
 (``paged_attention``, the reduced engine against the CPU's), on the card.  They skip elsewhere (decided
 inside each test, never at import).  This file imports neither ``jax``
@@ -24,17 +26,21 @@ from repro_torch.configs import get_config
 from repro_torch.core import build_flow
 from repro_torch.core.workloads import WORKLOADS
 from repro_torch.kernels import _build, ops as kops
-from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                 tolerance)
+from repro_torch.kernels.flash_attention import (
+    BWD_KERNELS, flash_attention_bwd, flash_attention_fwd,
+    flash_attention_fwd_lse, grad_tolerance, tolerance)
 from repro_torch.kernels.int_matmul import ROUTES, TENSOR_CORES, k_major
 from repro_torch.kernels.multithreshold import ROUTES as MT_ROUTES
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (DEAD_LSE, flash_attention_bwd_ref,
+                                     flash_attention_lse_ref,
+                                     flash_attention_ref)
+from repro_torch.launch import train as launch_train
 from repro_torch.models import attention as attn_mod, get_model
 from repro_torch.qat import (QATConfig, check_budget_invariant,
                              proven_layer_bits, run_qat)
 from repro_torch.serve import (Request, ServingConfig, ServingEngine,
                                derive_kv_spec)
-from repro_torch.tree import leaves
+from repro_torch.tree import flatten, leaves, unflatten
 
 NEEDS_CARD = "needs a CUDA device (the kernels have no CPU mode)"
 
@@ -393,13 +399,59 @@ def test_flash_attention_kernel_refuses_16_bit_rows_not_a_multiple_of_8(
 
 
 @pytest.mark.gpu
-def test_flash_attention_kernel_refuses_gradients():
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_backward_kernels_equal_plain_version(case, dtype):
+    """The forward's lse within 1e-5 of the plain one (rows that see no
+    key aside); dq, dk, dv of the three backward kernels (one launch each)
+    within ``grad_tolerance`` of the plain backward on the same out and
+    lse, and bit-equal over two calls (no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip(NEEDS_CARD)
-    q = torch.zeros(1, 8, 2, 16, device="cuda", requires_grad=True)
-    k = torch.zeros(1, 8, 1, 16, device="cuda")
-    with pytest.raises(NotImplementedError):
-        flash_attention_fwd(q, k, k)
+    B, Sq, Sk, H, KV, hd, kw = FLASH_CASES[case]
+    dt = FLASH_DTYPES[dtype]
+    g = torch.Generator(device="cuda").manual_seed(len(case) + 7)
+    q, k, v, dout = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                     for shape in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                                   (B, Sk, KV, hd), (B, Sq, H, hd)))
+    out, lse = flash_attention_fwd_lse(q, k, v, **kw)
+    lse_p = flash_attention_lse_ref(q, k, **kw)
+    live = lse_p > DEAD_LSE
+    assert torch.equal(live, lse > DEAD_LSE)
+    assert bool(((lse - lse_p).abs() <= 1e-5 * lse_p.abs().clamp_min(1.0))
+                [live].all())
+    _build.reset_launch_counts()
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(_build.LAUNCH_COUNTS[n] == 1 for n in BWD_KERNELS)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dt and a.shape == w.shape and torch.equal(a, b)
+        err = (a.double() - w.double()).abs()
+        assert bool((err <= grad_tolerance(w)).all()), float(err.max())
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_has_a_gradient():
+    """A CUDA input that needs a gradient goes through the autograd
+    function: one forward launch, then one launch of each backward
+    kernel, and the gradient of the plain attention's."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, dout = (torch.randn(shape, generator=g, device="cuda")
+                     for shape in ((2, 40, 4, 16), (2, 40, 2, 16),
+                                   (2, 40, 2, 16), (2, 40, 4, 16)))
+    x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    _build.reset_launch_counts()
+    got = torch.autograd.grad(flash_attention_fwd(*x, window=9), x, dout)
+    assert _build.LAUNCH_COUNTS["flash_attention"] == 1
+    assert all(_build.LAUNCH_COUNTS[n] == 1 for n in BWD_KERNELS)
+    y = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*y, window=9), y, dout)
+    for a, w in zip(got, want):
+        assert bool(((a - w).abs() <= 1e-5 * w.abs().max()).all())
 
 
 @pytest.mark.gpu
@@ -564,23 +616,96 @@ def test_exported_qat_model_on_the_card_is_bit_exact():
         np.testing.assert_array_equal(got[t].astype(np.float64), want[t])
 
 
+def _lm_grads(model, toks):
+    flat, spec = flatten(model.param_tree())
+    live = [t.detach().requires_grad_(True) for t in flat]
+    loss = model.loss(unflatten(spec, live), toks[:, :-1], toks[:, 1:])
+    return torch.autograd.grad(loss, live)
+
+
 @pytest.mark.gpu
-def test_lm_loss_on_the_card_raises_without_a_backward_kernel():
-    """No plain-attention fallback on CUDA: a loss that needs a gradient
-    reaches the flash-attention wrapper, which raises until the backward
-    kernel exists (ROADMAP B4)."""
+def test_lm_loss_on_the_card_has_a_gradient_through_the_kernels():
+    """The reduced qwen2 on the card: ``Model.loss``'s gradient comes from
+    the kernels (one forward and one launch of each backward kernel per
+    layer) and lies within 1e-4 of each leaf's largest element of the
+    gradient through the plain attention."""
     if not torch.cuda.is_available():
         pytest.skip(NEEDS_CARD)
     cfg = get_config("qwen2-1.5b", reduced=True)
     model = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
-    params = model.param_tree()
-    params["layers"][0]["attn"]["wq"] = \
-        params["layers"][0]["attn"]["wq"].clone().requires_grad_(True)
-    toks = torch.randint(0, cfg.vocab, (2, 16), device="cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 33), device="cuda")
     _build.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="B4"):
-        model.loss(params, toks, toks)
-    assert _build.LAUNCH_COUNTS["flash_attention"] == 0
+    got = _lm_grads(model, toks)
+    assert _build.LAUNCH_COUNTS["flash_attention"] == cfg.n_layers
+    assert all(_build.LAUNCH_COUNTS[n] == cfg.n_layers for n in BWD_KERNELS)
+    kernel = attn_mod.flash_attention
+    attn_mod.flash_attention = flash_attention_ref
+    try:
+        want = _lm_grads(model, toks)
+    finally:
+        attn_mod.flash_attention = kernel
+    for a, w in zip(got, want):
+        assert bool(((a - w).abs() <= 1e-4 * w.abs().max()).all())
+
+
+@pytest.mark.gpu
+def test_lm_train_step_with_remat_on_the_card():
+    """``make_train_step``'s default ``remat=True`` recomputes each layer
+    in the backward pass: two forward launches per layer, one of each
+    backward kernel, and the loss of a step without remat."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from repro_torch.optim import AdamW
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    model = get_model(cfg)
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=2)
+    state = init_train_state(model, opt,
+                             torch.Generator(device="cuda").manual_seed(1))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 17))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    _build.reset_launch_counts()
+    _, m_remat = make_train_step(model, opt)(state, batch)
+    assert _build.LAUNCH_COUNTS["flash_attention"] == 2 * cfg.n_layers
+    assert all(_build.LAUNCH_COUNTS[n] == cfg.n_layers for n in BWD_KERNELS)
+    _, m_plain = make_train_step(model, opt, remat=False)(state, batch)
+    assert float(m_remat["loss"]) == float(m_plain["loss"])
+    assert abs(float(m_remat["grad_norm"]) - float(m_plain["grad_norm"])) \
+        <= 1e-5 * float(m_plain["grad_norm"])
+
+
+@pytest.mark.gpu
+def test_train_main_on_the_card_resumes_bit_exact(tmp_path, monkeypatch,
+                                                  capsys):
+    """``launch.train.main`` on the card, reduced qwen2: six steps with a
+    checkpoint every three; the last checkpoint deleted, the same command
+    resumes at step 3 and saves a step-6 checkpoint equal to the first,
+    under deterministic algorithms."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    argv = ["--arch", "qwen2-1.5b", "--reduced", "--steps", "6", "--batch",
+            "4", "--seq", "32", "--ckpt-every", "3", "--ckpt-dir",
+            str(tmp_path)]
+    last = tmp_path / "ckpt_00000006.npz"
+    try:
+        _build.reset_launch_counts()
+        assert launch_train.main(argv) == 0
+        assert _build.LAUNCH_COUNTS["flash_attention_bwd_dq"] == 6 * 2
+        with np.load(last) as x:
+            first = {f: x[f] for f in x.files}
+        last.unlink()
+        capsys.readouterr()
+        assert launch_train.main(argv) == 0
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert capsys.readouterr().out.startswith(
+        f"resumed from {tmp_path / 'ckpt_00000003.npz'} at step 3")
+    with np.load(last) as y:
+        assert sorted(y.files) == sorted(first)
+        assert all(np.array_equal(first[f], y[f]) for f in y.files)
 
 
 def test_run_qat_without_a_card_raises():

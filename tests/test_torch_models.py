@@ -265,6 +265,80 @@ def test_packed_weights_forward_matches_reference():
     _close_to_scale(tm(_t(toks)).numpy(), np.asarray(want), 1e-4)
 
 
+def _packed_paths(node, path=()):
+    """The paths of the ``{q, s}`` leaves of a packed tree, with layer
+    indices and gemma2's ``local``/``global`` keys dropped (the reference
+    decides once per stack, so every layer of the port must agree)."""
+    if isinstance(node, dict) and set(node) == {"q", "s"}:
+        return {path}
+    if isinstance(node, dict):
+        return set().union(*(_packed_paths(
+            v, path if (path == ("layers",) and k in ("local", "global"))
+            else path + (k,)) for k, v in node.items())) if node else set()
+    if isinstance(node, (list, tuple)):
+        return set().union(*(_packed_paths(v, path) for v in node)) \
+            if node else set()
+    return set()
+
+
+def _flat_port(node, prefix=""):
+    if isinstance(node, dict):
+        return {k2: v2 for k, v in node.items()
+                for k2, v2 in _flat_port(v, f"{prefix}.{k}" if prefix
+                                         else k).items()}
+    if isinstance(node, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(node)
+                for k2, v2 in _flat_port(v, f"{prefix}.{i}").items()}
+    return {prefix: node}
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_pack_weights_default_min_size_matches_reference(arch):
+    """At the default ``min_size`` (4096) the port packs exactly the
+    leaves the reference packs, whose layer arrays are stacked (ROADMAP
+    C2), to the same bits, and the logits agree within 1e-4 of their
+    scale.  Packed MoE experts run in neither package (reference fault
+    9), so the MoE configs compare the packed leaves only."""
+    jcfg, jm, params, tm = _pair(arch)
+    jpacked = j_quant.pack_weights_int8(params)
+    tpacked = t_quant.pack_weights_int8(tm.param_tree(), cfg=tm.cfg)
+    want = _packed_paths(_np_tree(jpacked))
+    assert want and _packed_paths(tpacked) == want
+    n_layers = len(tpacked["layers"])
+    for i in range(n_layers):        # every layer decides like the stack
+        assert _packed_paths(tpacked["layers"][i], ("layers",)) == {
+            p for p in want if p[0] == "layers"}
+    if jcfg.family == "moe":
+        return
+    flat = load_reference_params(tm.cfg, _np_tree(jpacked))
+    got = _flat_port(tpacked)
+    assert sorted(got) == sorted(flat)
+    for name, t in flat.items():
+        assert torch.equal(got[name], t), name
+    tm_packed = get_model(tm.cfg, device="cpu").load_reference_params(
+        _np_tree(jpacked))
+    toks, fe = _inputs(jcfg, 1, 9, seed=5)
+    want_logits = jm.forward(jpacked, jnp.asarray(toks),
+                             None if fe is None else jnp.asarray(fe))
+    with torch.no_grad():
+        got_logits = tm_packed(_t(toks), None if fe is None else _t(fe))
+    V = jcfg.vocab
+    _close_to_scale(got_logits[..., :V].numpy(),
+                    np.asarray(want_logits)[..., :V], 1e-4)
+
+
+def test_pack_weights_of_a_layer_list_needs_the_cfg():
+    """The stacked size that ``min_size`` is held against depends on the
+    family (gemma2's halves, the pad experts), so a tree with a
+    ``layers`` list is refused without the model's cfg."""
+    tm = get_model(get_config("qwen2-1.5b", reduced=True),
+                   device="cpu").init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="cfg"):
+        t_quant.pack_weights_int8(tm.param_tree())
+    packed = t_quant.pack_weights_int8(tm.param_tree(), cfg=tm.cfg)
+    assert isinstance(packed["layers"][0]["attn"]["wq"], dict)
+
+
 def test_state_dict_is_the_converted_tree():
     jcfg, _, params, tm = _pair("gemma2-2b")
     flat = load_reference_params(tm.cfg, _np_tree(params))
