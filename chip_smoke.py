@@ -9,9 +9,12 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
 use), then runs eleven phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds,
-               the HGMMA (16-bit wgmma) instructions of flash_attention
-               and the IGMMA (int8 wgmma) instructions of int_matmul in
-               the built library
+               the HGMMA (16-bit wgmma) instructions of flash_attention's
+               forward and of the tensor-core backward's dK/dV and dQ
+               kernels (each counted apart) and the IGMMA (int8 wgmma)
+               instructions of int_matmul in the built library; ptxas's
+               registers and spilled bytes of the backward's tensor-core
+               kernels (0 spilled)
   kernel_grid  every kernel against its plain PyTorch version on the card,
                over the CPU tests' shape grid and the main paths' real
                shapes, int_matmul on both of its routes over an edge grid
@@ -76,8 +79,9 @@ use), then runs eleven phases and prints one JSON object per line:
                multithreshold bound by bytes or by the compares of a
                search, M*C*ceil(log2(N+1)); flash attention's forward
                also with its log-sum-exp (the training forward), and the
-               three backward kernels (D, dK/dV, dQ) at the same layer
-               shape beside SDPA's backward
+               three backward kernels (D, dK/dV, dQ; bf16 dK/dV and dQ on
+               both routes, tensor_cores and cuda_cores) at the same
+               layer shape beside SDPA's backward
   lm_prefill   the LM slice: qwen2-1.5b at full width (28 layers) with
                seeded random weights.  float32, B=1, S=1024: logits with
                the flash-attention kernel against plain attention, and
@@ -144,19 +148,25 @@ use), then runs eleven phases and prints one JSON object per line:
                q_offset, window, soft-cap, ragged lengths, rows that see
                no key, 16 x 12 heads; the layer shape 1 x 4096): the
                forward's lse within 1e-5 of the plain one, D within
-               1e-5 of rowsum(dO*out), dq, dk, dv
-               within ``flash_attention.grad_tolerance`` of the plain
-               backward on the same out and lse, bit-equal over two
-               calls, their distance to float64 autograd reported.
-               qwen2-1.5b at full width in float32, 1 x 1024:
-               ``Model.loss``'s gradient through the kernels within 1e-4
-               of each leaf's largest element through the plain
-               attention, 28 launches of each kernel.  Then
+               1e-5 of rowsum(dO*out), dq, dk, dv on each route the
+               case takes (bf16/f16 with hd <= 128 on tensor_cores and,
+               forced, on cuda_cores) within
+               ``flash_attention.grad_tolerance`` of the plain backward
+               on the same out and lse (tensor_cores: with its term for
+               rounding P and dS), bit-equal over two calls, their
+               distance to float64 autograd reported.  qwen2-1.5b at full
+               width, 1 x 1024: in float32, ``Model.loss``'s gradient
+               through the kernels within 1e-4 of each leaf's largest
+               element through the plain attention, 28 launches of each
+               kernel; in bf16 (tensor_cores), each leaf no further from
+               the float32 gradient than 1.5x the plain attention's bf16
+               gradient, plus 1e-3 of its norm.  Then
                ``launch.train`` at published widths (bf16 params, float32
                masters, 2 x 2048 tokens a step in 2 microbatches, 20
                steps) under deterministic algorithms: the reference's
                lines, one forward and three backward launches per layer
-               and microbatch, the loss falling, ms per step, tokens/s,
+               and microbatch (dK/dV and dQ all on tensor_cores), the
+               loss falling, ms per step, tokens/s,
                the model-FLOP share, peak memory, one more step profiled
                (device ms by kernel family, idle share); then the same
                run with a checkpoint every 10 steps killed at step 10,
@@ -164,7 +174,8 @@ use), then runs eleven phases and prints one JSON object per line:
                straight run's state, bit for bit
 
 then a ``{"kernels": [...]}`` line (the four TPU kernels' counterparts
-and the three backward kernels; per kernel: launches on its path and
+and the backward kernels, dK/dV and dQ once per route; per kernel:
+launches on its path and
 on each phase's path,
 max abs error against the plain version, and at the main path's shape
 ``ms``, the kernel's time on the device, beside ``wrapper_ms``, one eager
@@ -217,12 +228,13 @@ from repro_torch.kernels.int_matmul import (                 # noqa: E402
 from repro_torch.kernels.multithreshold import (             # noqa: E402
     ROUTES as MT_ROUTES, SEARCH, route_for as mt_route_for)
 from repro_torch.kernels.flash_attention import (            # noqa: E402
-    BWD_KERNELS, bwd_delta, bwd_dkdv, bwd_dq, flash_attention_bwd,
-    flash_attention_fwd, flash_attention_fwd_lse, grad_tolerance,
+    BWD_KERNELS, CUDA_CORES, ROUTES as BWD_ROUTES, TENSOR_CORES, bwd_delta,
+    bwd_dkdv, bwd_dq, flash_attention_bwd, flash_attention_fwd,
+    flash_attention_fwd_lse, grad_tolerance, route_for as bwd_route_for,
     tolerance as fa_tolerance)
 from repro_torch.kernels.ref import (                         # noqa: E402
-    DEAD_LSE, flash_attention_bwd_ref, flash_attention_lse_ref,
-    flash_attention_ref)
+    DEAD_LSE, flash_attention_bwd_magnitudes, flash_attention_bwd_ref,
+    flash_attention_lse_ref, flash_attention_ref)
 from repro_torch.launch import train as lm_trainer      # noqa: E402
 from repro_torch.models import attention as lm_attention     # noqa: E402
 from repro_torch.models import moe as lm_moe                 # noqa: E402
@@ -351,6 +363,11 @@ def bound(nbytes: float, ops: float, ops_per_s: float):
 # phase: env
 # --------------------------------------------------------------------------
 
+#: the tensor-core backward's kernels (symbol names), each counted apart in
+#: the HGMMA census and held to 0 spilled bytes in ptxas's build log
+BWD_TC_KERNELS = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
+
+
 def phase_env() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -364,27 +381,67 @@ def phase_env() -> dict:
     sass = sass_mma(lib._name)
     check(sass["hgmma"]["flash_kernel_tc"] > 0,
           f"the 16-bit flash_attention kernel has no HGMMA: {sass}")
+    check(all(sass["hgmma"][n] > 0 for n in BWD_TC_KERNELS),
+          f"a tensor-core backward kernel has no HGMMA: {sass}")
     check(sass["igmma"]["int8_matmul_tc"] > 0,
           f"the int8 int_matmul kernel has no IGMMA: {sass}")
+    ptxas = ptxas_report(pathlib.Path(lib._name).with_suffix(".log"),
+                         BWD_TC_KERNELS)
+    check(all(ptxas[n]["instances"] > 0 and ptxas[n]["spill_bytes"] == 0
+              for n in BWD_TC_KERNELS),
+          f"ptxas spills in the tensor-core backward (or no build log): "
+          f"{ptxas}")
     return dict(phase="env", python=sys.version.split()[0],
                 torch=torch.__version__, cuda=torch.version.cuda,
                 device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                 kernel_build_s=round(_build.build_seconds, 2),
                 kernel_load_s=round(load_s, 2), sass_hgmma=sass["hgmma"],
-                sass_igmma=sass["igmma"], sass_gmma_opcodes=sass["opcodes"])
+                sass_igmma=sass["igmma"], sass_gmma_opcodes=sass["opcodes"],
+                ptxas=ptxas)
+
+
+def ptxas_report(log: pathlib.Path, names) -> dict:
+    """From the build log (``nvcc -Xptxas=-v``): for each kernel name,
+    its instances (template instantiations), their most registers a
+    thread and their most spilled bytes (stores + loads)."""
+    out = {n: dict(instances=0, registers=0, spill_bytes=0) for n in names}
+    if not log.exists():
+        return out
+    func = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            func = next((n for n in names if n in m.group(1)), None)
+            if func:
+                out[func]["instances"] += 1
+            continue
+        if func is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[func]["spill_bytes"] = max(out[func]["spill_bytes"],
+                                           int(m.group(1)) + int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[func]["registers"] = max(out[func]["registers"],
+                                         int(m.group(1)))
+    return out
 
 
 def sass_mma(library: str) -> dict:
     """Warpgroup MMA instructions in the built library, from ``cuobjdump
-    --dump-sass``: HGMMA (16-bit wgmma) in the flash_attention kernels
-    (``flash_kernel_tc``) and elsewhere, IGMMA (integer wgmma) in the
-    int8 int_matmul kernels (``int8_matmul_tc``) and elsewhere, and every
+    --dump-sass``: HGMMA (16-bit wgmma) in the forward flash_attention
+    kernel (``flash_kernel_tc``), in each tensor-core backward kernel
+    (``BWD_TC_KERNELS``) and elsewhere, IGMMA (integer wgmma) in the int8
+    int_matmul kernels (``int8_matmul_tc``) and elsewhere, and every
     distinct opcode that ends in GMMA."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", library],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
-    counts = dict(hgmma=dict(flash_kernel_tc=0, other=0),
+    hg_names = ("flash_kernel_tc",) + BWD_TC_KERNELS
+    counts = dict(hgmma=dict({n: 0 for n in hg_names}, other=0),
                   igmma=dict(int8_matmul_tc=0, other=0), opcodes=set())
     func = ""
     for line in sass.splitlines():
@@ -396,8 +453,8 @@ def sass_mma(library: str) -> dict:
             if op.endswith("GMMA"):
                 counts["opcodes"].add(op)
                 if op == "HGMMA":
-                    counts["hgmma"]["flash_kernel_tc" if "flash_kernel_tc"
-                                    in func else "other"] += 1
+                    counts["hgmma"][next((n for n in hg_names if n in func),
+                                         "other")] += 1
                 elif op == "IGMMA":
                     counts["igmma"]["int8_matmul_tc" if "int8_matmul_tc"
                                     in func else "other"] += 1
@@ -965,10 +1022,13 @@ def time_flash_attention(dt) -> dict:
 
 
 def time_flash_attention_bwd(dt) -> dict:
-    """The three backward kernels at ``FA_LAYER`` (causal): each one's
+    """The backward kernels at ``FA_LAYER`` (causal), dK/dV and dQ on each
+    route the type takes (``bwd_routes``), in the same call: each one's
     device time (CUDA-graph replays), one eager wrapper call, its bound
     and its plain version; the library call is SDPA's backward (all three
-    gradients, with autograd, backward only)."""
+    gradients, with autograd, backward only).  The ``tensor_cores`` dK/dV
+    launch is two kernels (the per-head partials, then their GQA sum): one
+    profiled call splits its device time between them."""
     L = FA_LAYER
     B, S, H, KV, hd = L["B"], L["S"], L["H"], L["KV"], L["hd"]
     gen = torch.Generator(device=DEV).manual_seed(2)
@@ -979,18 +1039,14 @@ def time_flash_attention_bwd(dt) -> dict:
     out, lse = flash_attention_fwd_lse(q, k, v)
     delta = bwd_delta(out, dout)
     kw = dict(causal=True, window=0, q_offset=0, logit_cap=0.0)
-    fns = {
-        "flash_attention_bwd_delta": lambda: bwd_delta(out, dout),
-        "flash_attention_bwd_dkdv":
-            lambda: bwd_dkdv(q, k, v, dout, lse, delta, **kw),
-        "flash_attention_bwd_dq":
-            lambda: bwd_dq(q, k, v, dout, lse, delta, **kw)}
+    fns = {BWD_KERNELS[0]: lambda: bwd_delta(out, dout)}
+    for route in bwd_routes(dt, hd):
+        fns[f"{BWD_KERNELS[1]}:{route}"] = lambda r=route: bwd_dkdv(
+            q, k, v, dout, lse, delta, route=r, **kw)
+        fns[f"{BWD_KERNELS[2]}:{route}"] = lambda r=route: bwd_dq(
+            q, k, v, dout, lse, delta, route=r, **kw)
     plain_bwd = time_ms(lambda: flash_attention_bwd_ref(
         q, k, v, out, lse, dout), 2, warmup=1)
-    plain = {"flash_attention_bwd_delta": time_ms(
-        lambda: (dout.float() * out.float()).sum(-1), 5),
-        "flash_attention_bwd_dkdv": plain_bwd,
-        "flash_attention_bwd_dq": plain_bwd}
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     lib_out = torch.nn.functional.scaled_dot_product_attention(
@@ -1008,27 +1064,37 @@ def time_flash_attention_bwd(dt) -> dict:
     # bytes: each input read once, each output written once; operations:
     # of the backward's five products of the forward's size, dK/dV makes
     # S, dP, dV and dK (2x the forward's), dQ makes dQ (0.5x)
-    work = {"flash_attention_bwd_delta": (2 * n * size + 4 * B * H * S, 0),
-            "flash_attention_bwd_dkdv": (
-                (2 * n + 2 * k.numel()) * size + 8 * B * H * S
-                + 2 * k.numel() * size, 2.0 * fwd_ops),
-            "flash_attention_bwd_dq": (
-                (2 * n + 2 * k.numel()) * size + 8 * B * H * S + n * size,
-                0.5 * fwd_ops)}
+    work = {BWD_KERNELS[0]: (2 * n * size + 4 * B * H * S, 0),
+            BWD_KERNELS[1]: ((2 * n + 2 * k.numel()) * size + 8 * B * H * S
+                             + 2 * k.numel() * size, 2.0 * fwd_ops),
+            BWD_KERNELS[2]: ((2 * n + 2 * k.numel()) * size + 8 * B * H * S
+                             + n * size, 0.5 * fwd_ops)}
     rows = {}
     for name, fn in fns.items():
+        base = name.split(":")[0]
         ms = device_ms(fn, GRAPH_LAUNCHES)
-        b_ms, by = bound(*work[name], peak)
+        b_ms, by = bound(*work[base], peak)
         rows[name] = dict(
             shape=f"{str(dt)[6:]} B{B} S{S} H{H} KV{KV} hd{hd} causal",
-            ms=ms, wrapper_ms=time_ms(fn, 3), plain_ms=plain[name],
+            ms=ms, wrapper_ms=time_ms(fn, 3),
+            plain_ms=time_ms(lambda: (dout.float() * out.float()).sum(-1),
+                             5) if base == BWD_KERNELS[0] else plain_bwd,
             bound_ms=b_ms, bound_by=by,
-            library_ms=None if name == "flash_attention_bwd_delta"
-            else lib_ms)
-    total = sum(r["ms"] for r in rows.values())
+            library_ms=None if base == BWD_KERNELS[0] else lib_ms)
+    by_route = {}
+    for route in bwd_routes(dt, hd):
+        by_route[route] = rows[BWD_KERNELS[0]]["ms"] + sum(
+            rows[f"{n}:{route}"]["ms"] for n in BWD_KERNELS[1:])
+    split = None
+    if TENSOR_CORES in by_route:
+        prof = device_profile(fns[f"{BWD_KERNELS[1]}:{TENSOR_CORES}"])
+        split = {kname[:80]: ms for kname, (ms, _) in
+                 prof["by_kernel"].items() if "flash_bwd_dkdv" in kname}
     b_total, _ = bound(0, 2.5 * fwd_ops, peak)
-    return dict(dtype=str(dt)[6:], kernels=rows, backward_ms=total,
-                backward_tflops=2.5 * fwd_ops / total / 1e9,
+    return dict(dtype=str(dt)[6:], kernels=rows, backward_ms=by_route,
+                backward_tflops={r: 2.5 * fwd_ops / t / 1e9
+                                 for r, t in by_route.items()},
+                dkdv_tensor_cores_split_ms=split,
                 backward_bound_ms=b_total, library_backward_ms=lib_ms,
                 library_tflops=2.5 * fwd_ops / lib_ms / 1e9,
                 plain_backward_ms=plain_bwd,
@@ -1036,7 +1102,9 @@ def time_flash_attention_bwd(dt) -> dict:
                         "enable_gqa=True) backward (dq, dk, dv) by "
                         "torch.autograd.grad",
                 note="library_ms of dkdv and dq: SDPA's whole backward; "
-                     "plain_ms of dkdv and dq: the whole plain backward")
+                     "plain_ms of dkdv and dq: the whole plain backward; "
+                     "backward_ms: D + dK/dV + dQ per route; "
+                     "dkdv_tensor_cores_split_ms: one profiled call")
 
 
 def phase_kernel_times(configs) -> dict:
@@ -2600,6 +2668,11 @@ DELTA_TOL = 1e-5
 #: of its largest element of the gradient through the plain attention
 LM_GRAD = (1, 1024)
 LM_GRAD_TOL = 1e-4
+#: the bf16 gradient at LM_GRAD: each leaf's distance to the float32
+#: gradient within this factor of the plain attention's bf16 distance,
+#: plus this share of the float32 gradient's norm
+LM_GRAD16_FACTOR = 1.5
+LM_GRAD16_FLOOR = 1e-3
 #: training through launch/train.py at published widths, bf16 params and
 #: float32 masters: the global batch and length (4 x 2048 in 2
 #: microbatches ran out of the card's 80 GB, so the batch is halved), the
@@ -2609,12 +2682,26 @@ LM_TRAIN = dict(batch=2, seq=2048, microbatches=2, steps=20, ckpt_every=10,
                 warm=3)
 
 
+#: the backward's kernels per route ("name:route"), as counted and
+#: reported: D has one route; dK/dV and dQ two
+BWD_ROUTED = (BWD_KERNELS[0],) + tuple(
+    f"{n}:{r}" for n in BWD_KERNELS[1:] for r in BWD_ROUTES)
+
+
+def bwd_routes(dt, hd) -> list:
+    """The routes a grid case runs: ``route_for``'s, then ``cuda_cores``
+    forced where that is another."""
+    first = bwd_route_for(dt, hd)
+    return [first] + ([CUDA_CORES] if first != CUDA_CORES else [])
+
+
 def bwd_grid_case(name, B, Sq, Sk, H, KV, hd, dt, kw, gen) -> dict:
     """One case: the forward's lse against the plain one; D of kernel
-    (a) against rowsum(dO*out); dq, dk, dv of the backward kernels
-    against the plain backward (same out and lse)
-    within ``grad_tolerance`` and bit-equal over two calls; the distance
-    to float64 autograd through ``flash_attention_ref``, reported."""
+    (a) against rowsum(dO*out); on each of ``bwd_routes``, dq, dk, dv of
+    the backward kernels against the plain backward (same out and lse)
+    within ``grad_tolerance`` (on the ``tensor_cores`` route with its term
+    for rounding P and dS) and bit-equal over two calls; the distance to
+    float64 autograd through ``flash_attention_ref``, reported."""
     q = torch.randn((B, Sq, H, hd), generator=gen, device=DEV).to(dt)
     k = torch.randn((B, Sk, KV, hd), generator=gen, device=DEV).to(dt)
     v = torch.randn((B, Sk, KV, hd), generator=gen, device=DEV).to(dt)
@@ -2629,13 +2716,6 @@ def bwd_grid_case(name, B, Sq, Sk, H, KV, hd, dt, kw, gen) -> dict:
     lse_err = float(((lse - lse_p).abs() / lse_p.abs().clamp_min(1.0))
                     [~dead].max()) if bool((~dead).any()) else 0.0
     check(lse_err <= LSE_TOL, f"{what}: lse {lse_err} from the plain one")
-    before = {n: _build.LAUNCH_COUNTS[n] for n in BWD_KERNELS}
-    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-    check(all(_build.LAUNCH_COUNTS[n] == before[n] + 1
-              for n in BWD_KERNELS), f"{what}: not one launch per kernel")
-    again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          f"{what}: two calls of the backward differ")
     # kernel (a) alone: D against rowsum(dO*out) in float32, each row
     # within DELTA_TOL of the sum of its terms' magnitudes
     prod = dout.float() * out.float()
@@ -2644,31 +2724,60 @@ def bwd_grid_case(name, B, Sq, Sk, H, KV, hd, dt, kw, gen) -> dict:
     check(bool((d_err <= DELTA_TOL * prod.abs().sum(-1).permute(
         0, 2, 1)).all()), f"{what}: D differs from rowsum(dO*out) (max abs "
         f"err {float(d_err.max())})")
+    del prod, d_plain
     want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
-    errs = {}
-    for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
-        check(g.dtype == dt and g.shape == w.shape
-              and bool(torch.isfinite(g).all()),
-              f"{what}: {gname} wrong in type, shape or value")
-        d = (g.double() - w.double()).abs()
-        check(bool((d <= grad_tolerance(w)).all()),
-              f"{what}: {gname} differs from the plain backward (max abs "
-              f"err {float(d.max())}, at max|g| {float(w.abs().max())})")
-        errs[gname] = float(d.max())
+    routes = bwd_routes(dt, hd)
+    mags = flash_attention_bwd_magnitudes(q, k, v, out, lse, dout, **kw) \
+        if TENSOR_CORES in routes else None
     # float64 autograd through the plain forward: the distance, reported
     x64 = [t.double().requires_grad_(True) for t in (q, k, v)]
     g64 = torch.autograd.grad(flash_attention_ref(*x64, **kw), x64,
                               dout.double())
-    f64 = [float((g.double() - w).abs().max() / w.abs().max().clamp_min(
-        1e-30)) for g, w in zip(got, g64)]
-    return dict(max_abs_err={
-        "flash_attention_bwd_delta": float(d_err.max()),
-        "flash_attention_bwd_dkdv": max(errs["dk"], errs["dv"]),
-        "flash_attention_bwd_dq": errs["dq"]}, lse_rel_err=lse_err,
-        rel_err_vs_float64_autograd=max(f64))
+    del x64
+    res = dict(max_abs_err={BWD_KERNELS[0]: float(d_err.max())},
+               lse_rel_err=lse_err, rel_err_vs_float64_autograd={})
+    for route in routes:
+        counted = BWD_KERNELS + tuple(f"{n}:{route}"
+                                      for n in BWD_KERNELS[1:])
+        before = {n: _build.LAUNCH_COUNTS[n] for n in counted}
+        got = flash_attention_bwd(q, k, v, out, lse, dout, route=route,
+                                  **kw)
+        check(all(_build.LAUNCH_COUNTS[n] == before[n] + 1
+                  for n in counted),
+              f"{what} {route}: not one launch per kernel")
+        again = flash_attention_bwd(q, k, v, out, lse, dout, route=route,
+                                    **kw)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{what} {route}: two calls of the backward differ")
+        errs = {}
+        for i, (g, w, gname) in enumerate(zip(got, want,
+                                              ("dq", "dk", "dv"))):
+            check(g.dtype == dt and g.shape == w.shape
+                  and bool(torch.isfinite(g).all()),
+                  f"{what} {route}: {gname} wrong in type, shape or value")
+            d = (g.double() - w.double()).abs()
+            bar = grad_tolerance(w, mags[i] if route == TENSOR_CORES
+                                 else None)
+            check(bool((d <= bar).all()),
+                  f"{what} {route}: {gname} differs from the plain backward "
+                  f"(max abs err {float(d.max())}, at max|g| "
+                  f"{float(w.abs().max())}; worst err/bar "
+                  f"{float((d / bar).max())})")
+            errs[gname] = float(d.max())
+        res["max_abs_err"][f"{BWD_KERNELS[1]}:{route}"] = max(errs["dk"],
+                                                             errs["dv"])
+        res["max_abs_err"][f"{BWD_KERNELS[2]}:{route}"] = errs["dq"]
+        res["rel_err_vs_float64_autograd"][route] = max(
+            float((g.double() - w).abs().max() / w.abs().max().clamp_min(
+                1e-30)) for g, w in zip(got, g64))
+        del got, again
+    return res
 
 
 def grid_flash_attention_bwd() -> dict:
+    """Every case of ``FA_BWD_GRID`` in float32, bfloat16 and float16 and
+    the layer in float32 and bfloat16, each on its routes
+    (``bwd_routes``)."""
     gen = torch.Generator(device=DEV).manual_seed(3)
     L = FA_LAYER
     grid = [(name, B, Sq, Sk, H, KV, hd, dt, kw)
@@ -2677,20 +2786,32 @@ def grid_flash_attention_bwd() -> dict:
     # the slice's real layer shape
     grid += [("layer", L["B"], L["S"], L["S"], L["H"], L["KV"], L["hd"], dt,
               {}) for dt in (torch.float32, torch.bfloat16)]
-    worst = dict(max_abs_err={n: 0.0 for n in BWD_KERNELS},
-                 lse_rel_err=0.0, rel_err_vs_float64_autograd={})
+    worst = dict(max_abs_err={n: 0.0 for n in BWD_ROUTED},
+                 lse_rel_err=0.0, rel_err_vs_float64_autograd={},
+                 runs={r: 0 for r in BWD_ROUTES})
     for case in grid:
         r = bwd_grid_case(*case, gen)
-        for n in BWD_KERNELS:
-            worst["max_abs_err"][n] = max(worst["max_abs_err"][n],
-                                          r["max_abs_err"][n])
+        for n, e in r["max_abs_err"].items():
+            worst["max_abs_err"][n] = max(worst["max_abs_err"][n], e)
         worst["lse_rel_err"] = max(worst["lse_rel_err"], r["lse_rel_err"])
         by = worst["rel_err_vs_float64_autograd"]
         dtn = str(case[7])[6:]
-        by[dtn] = max(by.get(dtn, 0.0), r["rel_err_vs_float64_autograd"])
+        for route, e in r["rel_err_vs_float64_autograd"].items():
+            key = f"{dtn} {route}"
+            by[key] = max(by.get(key, 0.0), e)
+            worst["runs"][route] += 1
     torch.cuda.synchronize()
     worst["cases"] = len(grid)
     return worst
+
+
+def loss_grads(model, toks):
+    """``Model.loss`` over ``toks`` (inputs and next-token labels) and its
+    gradient with respect to every leaf of the model's parameters."""
+    flat, spec = flatten(model.param_tree())
+    live = [t.detach().requires_grad_(True) for t in flat]
+    loss = model.loss(unflatten(spec, live), toks[:, :-1], toks[:, 1:])
+    return float(loss.detach()), torch.autograd.grad(loss, live)
 
 
 def lm_grad_check() -> dict:
@@ -2701,21 +2822,15 @@ def lm_grad_check() -> dict:
     model = lm_model(cfg)
     B, S = LM_GRAD
     toks = lm_tokens(cfg, B, S + 1)
-    flat, spec = flatten(model.param_tree())
-
-    def grads():
-        live = [t.detach().requires_grad_(True) for t in flat]
-        loss = model.loss(unflatten(spec, live), toks[:, :-1], toks[:, 1:])
-        return float(loss.detach()), torch.autograd.grad(loss, live)
     counted = ("flash_attention",) + BWD_KERNELS
     before = {n: _build.LAUNCH_COUNTS[n] for n in counted}
-    loss_k, g_k = grads()
+    loss_k, g_k = loss_grads(model, toks)
     launches = {n: _build.LAUNCH_COUNTS[n] - before[n] for n in counted}
     check(all(launches[n] == cfg.n_layers for n in counted),
           f"float32 loss and gradient: launches {launches}, not "
           f"{cfg.n_layers} of each kernel")
     with plain_attention():
-        loss_p, g_p = grads()
+        loss_p, g_p = loss_grads(model, toks)
     worst = 0.0
     for i, (a, b) in enumerate(zip(g_k, g_p)):
         scale = float(b.abs().max())
@@ -2724,14 +2839,68 @@ def lm_grad_check() -> dict:
               f"float32 gradient, leaf {i} {tuple(b.shape)}: kernels vs "
               f"plain attention {err} > {LM_GRAD_TOL} * {scale}")
         worst = max(worst, err / scale if scale else 0.0)
-    n_leaves = len(flat)
-    del model, flat, g_k, g_p
+    n_leaves = len(g_k)
+    del model, g_k, g_p
     gc.collect()
     torch.cuda.empty_cache()
     return dict(dtype="float32", B=B, S=S, loss_kernels=loss_k,
                 loss_plain=loss_p, leaves=n_leaves,
                 max_rel_err_per_leaf=worst, bar=LM_GRAD_TOL,
                 launches=launches)
+
+
+def lm_grad_check_bf16() -> dict:
+    """qwen2-1.5b at full width in bfloat16: ``Model.loss``'s gradient at
+    ``LM_GRAD`` through the kernels (the ``tensor_cores`` backward, one
+    launch of each per layer) against g32, the float32 gradient of a
+    float32 copy of the same weights through the plain attention.  Each
+    leaf: ||g - g32|| <= LM_GRAD16_FACTOR ||g_plain16 - g32|| +
+    LM_GRAD16_FLOOR ||g32||, with g_plain16 the bfloat16 gradient through
+    the plain attention (PERF.md §2's bf16-logits rule: the kernels'
+    rounding of P and dS may add to a bf16 backward's error, not dominate
+    it)."""
+    cfg = get_config(LM_ARCH)
+    check(cfg.dtype == torch.bfloat16, f"{LM_ARCH} is not bfloat16")
+    model = lm_model(cfg)
+    B, S = LM_GRAD
+    toks = lm_tokens(cfg, B, S + 1)
+    counted = BWD_KERNELS[1:] + tuple(f"{n}:{r}" for n in BWD_KERNELS[1:]
+                                      for r in BWD_ROUTES)
+    before = {n: _build.LAUNCH_COUNTS[n] for n in counted}
+    loss_k, g_k = loss_grads(model, toks)
+    launches = {n: _build.LAUNCH_COUNTS[n] - before[n] for n in counted}
+    check(all(launches[n] == cfg.n_layers and
+              launches[f"{n}:{TENSOR_CORES}"] == cfg.n_layers and
+              launches[f"{n}:{CUDA_CORES}"] == 0 for n in BWD_KERNELS[1:]),
+          f"bf16 loss and gradient: launches {launches}, not "
+          f"{cfg.n_layers} of each on the tensor_cores route")
+    with plain_attention():
+        loss_p, g_p = loss_grads(model, toks)
+    ref = get_model(dataclasses.replace(cfg, dtype=torch.float32))
+    ref.params = copy.deepcopy(model.params).to(torch.float32)
+    del model
+    with plain_attention():
+        loss_32, g_32 = loss_grads(ref, toks)
+    del ref
+    worst, rows = 0.0, 0
+    for i, (a, b, c) in enumerate(zip(g_k, g_p, g_32)):
+        c = c.double()
+        d_k = float((a.double() - c).norm())
+        d_p = float((b.double() - c).norm())
+        bar = LM_GRAD16_FACTOR * d_p + LM_GRAD16_FLOOR * float(c.norm())
+        check(bool(torch.isfinite(a).all()) and d_k <= bar,
+              f"bf16 gradient, leaf {i} {tuple(c.shape)}: ||kernels - "
+              f"float32|| {d_k} > {bar} (plain bf16 {d_p}, ||g32|| "
+              f"{float(c.norm())})")
+        worst = max(worst, d_k / bar if bar else 0.0)
+        rows += 1
+    del g_k, g_p, g_32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(dtype="bfloat16", B=B, S=S, loss_kernels=loss_k,
+                loss_plain=loss_p, loss_float32=loss_32, leaves=rows,
+                max_share_of_bar=worst, factor=LM_GRAD16_FACTOR,
+                floor=LM_GRAD16_FLOOR, launches=launches)
 
 
 def train_argv(steps: int, ckpt_dir=None) -> list:
@@ -2757,7 +2926,9 @@ def train_lines_ok(text: str, steps: int) -> bool:
 
 def device_families(by_kernel: dict) -> dict:
     """Device ms of a profile's kernels by family: the flash forward,
-    each backward kernel, cuBLAS, the rest."""
+    each backward kernel on either route (``flash_bwd_dkdv_tc`` and its
+    GQA sum ``flash_bwd_dkdv_sum`` count as dK/dV, ``flash_bwd_dq_tc`` as
+    dQ), cuBLAS, the rest."""
     fam = dict(flash_forward=0.0, **{n: 0.0 for n in BWD_KERNELS},
                cublas=0.0, other=0.0)
     names = {"flash_bwd_delta": "flash_attention_bwd_delta",
@@ -2799,7 +2970,8 @@ def lm_train_run(card: str) -> dict:
     """``launch.train`` at published widths under deterministic
     algorithms (cuBLAS's fixed workspace set for this check only).  A
     straight run of ``steps`` steps: the reference's lines, one forward
-    and three backward launches per layer and microbatch, a falling loss
+    and three backward launches per layer and microbatch (dK/dV and dQ
+    on the ``tensor_cores`` route), a falling loss
     (the mean of the last 5 below that of the first 5), ms per step (the
     median after the warm steps), tokens/s, the model-FLOP share, peak
     memory, one more step profiled; its final state is kept on the host.
@@ -2812,7 +2984,7 @@ def lm_train_run(card: str) -> dict:
     state is 21.6 GB, so the runs write two and read one.)"""
     t = LM_TRAIN
     cfg = get_config(LM_ARCH)
-    counted = ("flash_attention",) + BWD_KERNELS
+    counted = ("flash_attention",) + BWD_KERNELS + BWD_ROUTED[1:]
     prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
     prev_mode = torch.are_deterministic_algorithms_enabled()
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
@@ -2827,10 +2999,14 @@ def lm_train_run(card: str) -> dict:
         peak = torch.cuda.max_memory_allocated()
         launches = {n: _build.LAUNCH_COUNTS[n] - before[n] for n in counted}
         per_run = cfg.n_layers * t["microbatches"] * t["steps"]
-        check(all(launches[n] == per_run for n in counted),
+        # bf16: every dK/dV and dQ launch on the tensor cores
+        want = {n: per_run if ":" not in n or n.endswith(TENSOR_CORES)
+                else 0 for n in counted}
+        check(launches == want,
               f"training: launches {launches}, not {per_run} of each "
               f"kernel ({cfg.n_layers} layers x {t['microbatches']} "
-              f"microbatches x {t['steps']} steps)")
+              f"microbatches x {t['steps']} steps; dK/dV and dQ on the "
+              f"tensor_cores route)")
         check(train_lines_ok(printed.getvalue(), t["steps"]),
               f"training printed {printed.getvalue()[:300]!r}")
         losses = first.losses
@@ -2932,9 +3108,12 @@ def phase_lm_train(card: str) -> dict:
     t0 = time.perf_counter()
     grad = lm_grad_check()
     grad["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grad16 = lm_grad_check_bf16()
+    grad16["seconds"] = time.perf_counter() - t0
     train = lm_train_run(card)
     return dict(phase="lm_train", arch=LM_ARCH, card=card, grid=grid,
-                gradient=grad, train=train,
+                gradient=grad, gradient_bf16=grad16, train=train,
                 seconds=time.perf_counter() - t_phase,
                 note="ms_per_step: host clock, median after the warm "
                      "steps, each step ending when its loss reaches the "
@@ -2943,7 +3122,8 @@ def phase_lm_train(card: str) -> dict:
                      "989e12); the profile: one more step of the same "
                      "run",
                 launches={k: _build.LAUNCH_COUNTS[k]
-                          for k in ("flash_attention",) + BWD_KERNELS})
+                          for k in ("flash_attention",) + BWD_KERNELS
+                          + BWD_ROUTED[1:]})
 
 
 # --------------------------------------------------------------------------
@@ -2965,6 +3145,7 @@ KERNEL_META = {
 #: the backward kernels: no TPU kernel; the reference differentiates its
 #: plain scanned attention with jax.vjp
 BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+BWD_TC_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"
 BWD_REPLACES = "src/repro/models/attention.py:66"
 
 
@@ -3013,13 +3194,19 @@ def main() -> None:
             wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"]))
-    for name in BWD_KERNELS:
+    for name in BWD_ROUTED:
         t = times["flash_attention_bwd"][0]["kernels"][name]
+        check(train["launches"][name] > 0,
+              f"{name} was not launched on the lm_train path")
         kernels.append(dict(
-            name=name, route="cuda", source=BWD_SOURCE,
+            name=name, route="cuda",
+            source=BWD_TC_SOURCE if name.endswith(TENSOR_CORES)
+            else BWD_SOURCE,
             replaces=BWD_REPLACES,
             note="no TPU kernel: the reference differentiates its plain "
-                 "attention with jax.vjp",
+                 "attention with jax.vjp; dK/dV and dQ per route "
+                 "(tensor_cores: bf16/f16, hd <= 128; cuda_cores: float32 "
+                 "and hd > 128, forced here at bf16 to time it)",
             launches=train["launches"][name],
             launches_by_path={k: ph["launches"].get(name, 0)
                               for k, ph in phases.items()},

@@ -24,10 +24,11 @@ from typing import Dict, List, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("int_matmul.cu", "multithreshold.cu", "quantize.cu",
-           "flash_attention.cu", "flash_attention_bwd.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu",
+           "flash_attention_bwd_tc.cu")
 #: headers the sources include: part of the build's hash, so an edit to
 #: one rebuilds the library
-HEADERS = ("hopper.cuh",)
+HEADERS = ("hopper.cuh", "flash_tc.cuh", "flash_bwd.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -127,6 +128,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sira_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
                                       ll, ll, i, f, f, i, p]
     lib.sira_flash_bwd_dq.restype = i
+    lib.sira_flash_bwd_dkdv_tc.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
+                                           i, i, i, i, ll, ll, i, f, f, i, p]
+    lib.sira_flash_bwd_dkdv_tc.restype = i
+    lib.sira_flash_bwd_dq_tc.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                         i, ll, ll, i, f, f, i, p]
+    lib.sira_flash_bwd_dq_tc.restype = i
 
 
 def load() -> ctypes.CDLL:

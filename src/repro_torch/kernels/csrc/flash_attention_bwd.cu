@@ -4,24 +4,16 @@
 //     s[i, j] = cap_fn(dot(q[b, i, h, :] * hd^-0.5, k[b, j, h / g, :]))
 // masked as in the forward (flash_attention.cu: causal, window, q_offset,
 // the finite -1e30), given dO = d loss / d out, the forward's out and its
-// lse (log-sum-exp of each query row).  Three kernels, one launch each:
+// lse (log-sum-exp of each query row).  Three steps, one launch each
+// (dK/dV on the tensor cores with GQA: two):
 //
 //   flash_bwd_delta  D[b, h, i] = sum_d dO[b, i, h, d] * out[b, i, h, d]
 //                    (float32), one warp per row;
-//   flash_bwd_dkdv   one block per (key tile, batch x KV head): K and V of
-//                    the tile stay in shared memory while the block walks
-//                    every query tile of every query head of its group
-//                    (the g = H / KV heads that read this KV head, so the
-//                    GQA sum stays in the block); per tile it recomputes
-//                    S = (q hd^-0.5) k^T, P = exp(s - lse) (masked),
-//                    dP = dO v^T, dS = P (dP - D) (times 1 - tanh^2 of the
-//                    capped score when logit_cap > 0) and accumulates
-//                    dV += P^T dO and dK += dS^T (q hd^-0.5) in registers;
-//   flash_bwd_dq     one block per (query tile, batch x head): Q, dO, lse
-//                    and D of the tile stay in shared memory while the
-//                    block walks the key tiles, recomputes P and dS the
-//                    same way and accumulates dQ += dS k; dQ is scaled by
-//                    hd^-0.5 once at the end.
+//   dK/dV            recompute S and P = exp(s - lse) (masked), dP =
+//                    dO v^T, dS = P (dP - D) (times 1 - tanh^2 of the
+//                    capped score when logit_cap > 0); dV = P^T dO,
+//                    dK = dS^T q hd^-0.5;
+//   dQ               recompute P and dS the same way; dQ = dS k hd^-0.5.
 //
 // There is no TPU kernel to replace: the reference differentiates its
 // plain scanned attention (src/repro/models/attention.py flash_attention)
@@ -30,25 +22,79 @@
 //
 // What bounds it on this card: operations.  The backward needs five
 // products of the forward's size (S, dP, dV, dK, dQ), 2.5x the forward's
-// 4 * B * H * hd * (visible query-key pairs); at qwen2-1.5b's layer
-// (B = 1, S = 4096, H = 12, KV = 2, hd = 128, causal) that is 1.3e11
-// operations: 0.13 ms at the 989 TFLOP/s of the 16-bit tensor cores, 1.9
-// ms at the 67 TFLOP/s of float32 FMAs.  What this design does about it:
-// little yet.  It is the simple kernel that is right: every product is a
-// float32 FMA on the CUDA cores, for every input type (16-bit inputs are
-// widened as they are staged), from 64 x 64 tiles (32 x 32 at hd = 256)
-// in shared memory, 256 threads a block, one or two blocks an SM; S and
-// dP are computed twice (once in each of the two big kernels).  The
-// tensor-core version (wgmma, TMA) is later work (ROADMAP B4b).
+// 4 * B * H * hd * (visible query-key pairs); this file computes S and dP
+// in both big kernels (seven products), which is how it avoids atomics.
+// At qwen2-1.5b's layer (B = 1, S = 4096, H = 12, KV = 2, hd = 128,
+// causal) the five are 1.3e11 operations: 0.13 ms at the 989 TFLOP/s of
+// the 16-bit tensor cores, 1.9 ms at the 67 TFLOP/s of float32 FMAs.
+//
+// Two routes for dK/dV and dQ, chosen by the wrapper before launch
+// (kernels/flash_attention.py route_for) and counted apart.  This file
+// holds D and the cuda_cores route; flash_attention_bwd_tc.cu the
+// tensor_cores route (a source of its own, so the two compile at the same
+// time); flash_bwd.cuh what both share (tile ranges, mask, arguments).
+//
+// tensor_cores: bfloat16 / float16 with hd <= 128 (hd % 8 == 0, padded
+//   to 64 or 128 with zeros by TMA's out-of-bounds fill), after
+//   FlashAttention-3's backward and with the forward's building blocks
+//   (flash_tc.cuh: wgmma, the 4-D TMA map; hopper.cuh: mbarriers).  A
+//   block is 384 threads: two consumer warpgroups and one producer
+//   warpgroup that gives its registers away (setmaxnreg 24 / 240).
+//   `flash_bwd_dkdv_tc`: one block per (batch x query head, 128 keys),
+//     key tile 0 (the one a causal mask keeps longest) launched first.
+//     K and V of the tile load once by TMA; the Q and dO tiles of every
+//     visible 64-row query tile stream through a 2-stage mbarrier ring
+//     (one TMA thread), with lse and D (one warp of plain loads: a
+//     ragged Sq leaves their rows off TMA's 16-byte grid).  Each consumer
+//     warpgroup owns 64 keys: S^T = K Q^T and dP^T = V dO^T are ss wgmma
+//     with both operands K-major; P^T and dS^T form in registers, are
+//     rounded to 16-bit A fragments (an m64nN accumulator is laid out as
+//     the register A operand of m64nNk16), and dV += P^T dO, dK += dS^T Q
+//     run as rs wgmma with dO and Q read MN-major (the transpose bit):
+//     nothing is transposed in memory.  dK is scaled by hd^-0.5 once.
+//     The GQA sum without atomics: with g = H / KV > 1 each block writes
+//     its head's float32 partial dK, dV to a scratch (B, Sk, H, hd) that
+//     the wrapper allocates, and `flash_bwd_dkdv_sum` adds a group's g
+//     heads in head order and rounds once; with g = 1 the block writes
+//     dK, dV itself.  One block per query head gives 16 x 12 = 192
+//     blocks at qwen2-1.5b's 1 x 2048 against 64 on the CUDA cores.
+//   `flash_bwd_dq_tc`: one block per (128 query rows, batch x head), the
+//     longest rows first; Q, dO (TMA), lse and D load once; K and V tiles
+//     of 64 keys stream through the ring; S = Q K^T and dP = dO V^T (ss),
+//     dS in registers, rounded, dQ += dS K (rs, K read MN-major); dQ is
+//     scaled by hd^-0.5 at the end.
+//   Rounding P and dS to 16 bits before the three products is the one
+//   change to the arithmetic contract below: flash_attention.py
+//   grad_tolerance adds 2 P_ROUNDING times the products of absolute
+//   values (ref.py flash_attention_bwd_magnitudes).  S and dP are
+//   products of 16-bit inputs, exact in float32; scaling S after the dot
+//   instead of q before it differs by float32 rounding, as in the
+//   forward; P = exp2(s hd^-0.5 log2(e) - lse log2(e)).  Inside a
+//   warpgroup the products and the elementwise step run one after the
+//   other; the two warpgroups overlap through the scheduler.
+//
+// cuda_cores: float32 (exact float32 has no tensor-core path; TF32 would
+//   miss the float32 gradient bar) and hd > 128 (gemma2's 256, where the
+//   dK and dV accumulators of 64 keys x 256 dims would need 256 float32
+//   registers a thread).  `flash_bwd_dkdv`: one block per (key tile,
+//   batch x KV head) walks every query tile of every query head of its
+//   GQA group, so the group's sum stays in the block; `flash_bwd_dq`:
+//   one block per (query tile, batch x head) walks the key tiles.  Every
+//   product is a float32 FMA from 64 x 64 tiles (32 x 32 at hd = 256)
+//   staged and widened through shared memory, 256 threads a block.
 //
 // Arithmetic contract (the plain version is kernels/ref.py
 // flash_attention_bwd_ref, which takes the same out and lse):
-// - every sum is float32, in a fixed order: both reductions of the
-//   backward (over query rows for dK/dV, over keys for dQ) run inside one
-//   block, with no atomics, so two calls give the same bits;
-// - q is scaled by the float32 hd^-0.5 before the dot, as in the plain
-//   version; dK sums dS times that scaled q; dQ sums dS times k and is
-//   then multiplied by hd^-0.5;
+// - every sum is float32, in a fixed order: each gradient element is
+//   summed inside one block, and the GQA partials in head order, with no
+//   atomics, so two calls give the same bits;
+// - cuda_cores: q is scaled by the float32 hd^-0.5 before the dot, as in
+//   the plain version; dK sums dS times that scaled q; dQ sums dS times
+//   k and is then multiplied by hd^-0.5; every product is of float32
+//   values;
+// - tensor_cores: as above, but P and dS are rounded to the input's
+//   16-bit type before the products, and dK, like dQ, is scaled after
+//   its sum;
 // - a masked pair has dS = 0 (the gradient of the mask's where); its P
 //   is 0, except in a row that sees no key at all (lse below -1e29, see
 //   flash_attention.cu), whose forward averaged v over all Sk keys: there
@@ -56,18 +102,19 @@
 // - the gradients are rounded once, to the input's type.
 // Edges are bound-checked (rows past Sq or Sk are zero in shared memory
 // and never written); hd <= 256.  Each C entry returns the
-// cudaError_t of its launch.
+// cudaError_t of its launches.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd.cuh"
+
 namespace {
 
-// an lse below this marks a row that sees no key (its lse is -1e30 or,
-// from the 16-bit forward, -6.9e29)
-constexpr float DEAD_LSE = -1e29f;
+using namespace sira::bwd;
+
 constexpr int THREADS = 256;    // 16 x 16 threads: (ty, tx)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -149,57 +196,6 @@ struct Tiles {
         (size_t)((2 * BK + 2 * BQ) * ST + BK * PST + 2 * BQ) * sizeof(float);
 };
 
-struct TileRange {
-    int lo, hi;
-};
-
-// key tiles [lo, hi) with a visible pair for query rows [q0, q0 + bq):
-// the forward's rule (tiles wholly past the diagonal or before the window
-// are skipped only when causal and 0 <= q_pos < Sk for every row)
-__device__ __forceinline__ TileRange key_tiles(int q0, int bq, int bk,
-                                               int Sq, int Sk,
-                                               long long q_offset,
-                                               long long window,
-                                               int causal) {
-    TileRange r{0, (Sk + bk - 1) / bk};
-    const long long q_lo = q_offset + q0;
-    const long long q_hi = q_lo + min(bq, Sq - q0) - 1;
-    if (causal && q_lo >= 0 && q_hi < Sk) {
-        r.hi = (int)(q_hi / bk) + 1;
-        const long long first = q_lo - window + 1;
-        if (window > 0 && first > 0) r.lo = (int)(first / bk);
-    }
-    return r;
-}
-
-// query tiles [lo, hi) with a visible pair for keys [k0, k0 + bk).  A
-// skipped tile adds nothing only if none of its rows sees no key at all
-// (such a row adds 1 / Sk of its dO to every dV), so tiles are skipped
-// only when causal with 0 <= q_pos < Sk for every query
-__device__ __forceinline__ TileRange query_tiles(int k0, int bk, int bq,
-                                                 int Sq, int Sk,
-                                                 long long q_offset,
-                                                 long long window,
-                                                 int causal) {
-    const int n = (Sq + bq - 1) / bq;
-    TileRange r{0, n};
-    if (causal && q_offset >= 0 && q_offset + Sq <= Sk) {
-        // query i sees key j when q_offset + i >= j and, with a window,
-        // q_offset + i - j < window
-        const long long first = k0 - q_offset;
-        if (first > 0) r.lo = (int)min((long long)n, first / bq);
-        if (window > 0) {
-            const long long last = (long long)k0 + bk - 2 + window - q_offset;
-            if (last < 0)
-                r.hi = r.lo;
-            else if (last < Sq - 1)
-                r.hi = (int)(last / bq) + 1;
-        }
-        if (r.hi < r.lo) r.hi = r.lo;
-    }
-    return r;
-}
-
 // rows [row0, row0 + rows) of a (n_rows, hd) slab with row stride
 // `stride`, widened to float32 and times `mul`, into a tile of stride
 // HDP + 4; rows past n_rows and columns past hd are zero
@@ -251,12 +247,6 @@ __device__ __forceinline__ void tile_dot(
             }
     }
 }
-
-struct Mask {
-    int Sq, Sk, causal;
-    long long q_offset, window;
-    float cap, inv_sk;
-};
 
 // s (the scaled dot) becomes P and dp becomes dS, for the thread's pairs
 // of query rows q0 + ty RQ + ii and keys k0 + tx + 16 jj; row_lse and
@@ -547,29 +537,6 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 // launchers
 // ---------------------------------------------------------------------------
 
-// above 48 KB dynamic shared memory must be asked for, once per device
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, unsigned& configured) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev < 32 && ((configured >> dev) & 1u)) return cudaSuccess;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err == cudaSuccess && dev < 32) configured |= 1u << dev;
-    return err;
-}
-
-struct Args {
-    const void *q, *k, *v, *dout;
-    const float *lse, *delta;
-    int B, Sq, Sk, H, KV, hd;
-    long long q_offset, window;
-    int causal;
-    float cap, scale;
-};
-
 template <typename T, int HDP>
 cudaError_t launch_dkdv(const Args& a, void* dk, void* dv, cudaStream_t s) {
     using L = Tiles<HDP>;
@@ -617,13 +584,6 @@ cudaError_t dq_by_width(const Args& a, void* dq, cudaStream_t s) {
     if (a.hd <= 64) return launch_dq<T, 64>(a, dq, s);
     if (a.hd <= 128) return launch_dq<T, 128>(a, dq, s);
     return launch_dq<T, 256>(a, dq, s);
-}
-
-bool bad_shape(int B, int Sq, int Sk, int H, int KV, int hd,
-               long long window) {
-    return B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 ||
-           H % KV != 0 || hd <= 0 || hd > 256 || window < 0 ||
-           (long long)B * H > 65535;
 }
 
 }  // namespace

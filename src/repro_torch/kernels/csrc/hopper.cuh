@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory
-// (flash_attention.cu, int_matmul.cu, multithreshold.cu): shared-memory
-// addresses, mbarriers, TMA copies between device and shared memory, the
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand, wgmma
-// fences, and libcuda's tensor-map encoder reached through the runtime
-// (no -lcuda).  Plain C interface: no PyTorch header.
+// (flash_attention.cu, flash_attention_bwd.cu, int_matmul.cu,
+// multithreshold.cu): shared-memory addresses, mbarriers, TMA copies
+// between device and shared memory, the wgmma shared-memory descriptor of
+// a 128-byte-swizzled operand, wgmma fences, and libcuda's tensor-map
+// encoder reached through the runtime (no -lcuda).  Plain C interface: no
+// PyTorch header.
 #pragma once
 
 #include <cuda.h>

@@ -18,9 +18,14 @@ on the CPU, where autograd differentiates it.
 On the card, a call that needs a gradient goes through
 :class:`FlashAttention`: its forward is the same kernel, which then also
 writes each query row's log-sum-exp, and its backward is three kernels of
-``csrc/flash_attention_bwd.cu`` (D = rowsum(dO·out), dK/dV, dQ), whose
+``csrc/flash_attention_bwd.cu`` (D = rowsum(dO·out), dK/dV, dQ; the
+tensor-core dK/dV and dQ in ``csrc/flash_attention_bwd_tc.cu``), whose
 plain version is ``ref.flash_attention_bwd_ref``; :func:`grad_tolerance`
-bounds them against it.
+bounds them against it.  dK/dV and dQ have two routes, which
+:func:`route_for` picks from the type and head dim: ``tensor_cores``
+(bfloat16/float16 with ``hd <= 128``: wgmma and TMA, P and dS rounded to
+16 bits before their products) and ``cuda_cores`` (float32, and
+``hd > 128``: float32 FMAs).
 """
 from __future__ import annotations
 
@@ -30,12 +35,35 @@ from . import _build
 from .ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
                   flash_attention_ref)
 
+TENSOR_CORES = "tensor_cores"
+CUDA_CORES = "cuda_cores"
+#: the routes of the dK/dV and dQ kernels
+ROUTES = (TENSOR_CORES, CUDA_CORES)
+
 _KIND = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _BQ = {torch.float32: 64, torch.float16: 128, torch.bfloat16: 128}
 MAX_HEAD_DIM = 256
 #: half an ulp of one softmax weight P in the 16-bit kernel: the largest
 #: relative rounding of P before P·V
 P_ROUNDING = {torch.bfloat16: 2.0 ** -9, torch.float16: 2.0 ** -11}
+#: the widest head the tensor-core backward takes (its dK and dV
+#: accumulators of 64 keys x hd stay in registers)
+TC_BWD_MAX_HEAD_DIM = 128
+#: keys a block of the tensor-core dK/dV kernel
+_TC_BK = 128
+
+
+def route_for(dtype: torch.dtype, hd: int) -> str:
+    """The route of the backward's dK/dV and dQ kernels for inputs of
+    ``dtype`` and head dim ``hd`` on the card: ``tensor_cores`` for
+    bfloat16/float16 with ``hd <= 128``; ``cuda_cores`` for float32 (exact
+    float32 has no tensor-core path, and TF32 would miss the float32 bar
+    of :func:`grad_tolerance`) and for ``hd > 128`` (gemma2's 256: dK and
+    dV of 64 keys x 256 dims would need 256 float32 registers a thread).
+    Never chosen on failure."""
+    if dtype in P_ROUNDING and hd <= TC_BWD_MAX_HEAD_DIM:
+        return TENSOR_CORES
+    return CUDA_CORES
 
 
 def ulp(x: torch.Tensor) -> torch.Tensor:
@@ -60,7 +88,8 @@ def tolerance(plain: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return ulp(plain) + 2.0 * P_ROUNDING[plain.dtype] * vmax
 
 
-def grad_tolerance(plain: torch.Tensor) -> torch.Tensor:
+def grad_tolerance(plain: torch.Tensor,
+                   magnitude: torch.Tensor = None) -> torch.Tensor:
     """How far, per element, a gradient of the backward kernels (dq, dk or
     dv) may lie from the plain backward's ``plain``
     (``ref.flash_attention_bwd_ref`` on the same inputs, the same ``out``
@@ -73,19 +102,31 @@ def grad_tolerance(plain: torch.Tensor) -> torch.Tensor:
     grows as the root of its length times the size of its partial sums,
     which the largest gradient bounds: about 5e-6·max|plain| at that
     length.  The relative term covers the products of one element.
-    bfloat16/float16: ``ulp(plain)`` plus the float32 term.  The kernels
-    widen the 16-bit inputs and compute every product and sum in float32,
-    like the plain backward, and round each gradient once: two float32
-    values that differ by the float32 term round to 16-bit values at most
-    one ulp apart.  The forward's rounding of P before P·V does not enter:
-    both backwards read the same ``out`` and ``lse``.  (A tensor-core
-    backward that rounds P and dS to 16 bits before its products would
-    need a term for that as well.)"""
+    bfloat16/float16: ``ulp(plain)`` plus the float32 term.  The
+    ``cuda_cores`` kernels widen the 16-bit inputs and compute every
+    product and sum in float32, like the plain backward, and round each
+    gradient once: two float32 values that differ by the float32 term
+    round to 16-bit values at most one ulp apart.  The forward's rounding
+    of P before P·V does not enter: both backwards read the same ``out``
+    and ``lse``.
+
+    ``magnitude`` (the ``tensor_cores`` route): the gradient's entry of
+    ``ref.flash_attention_bwd_magnitudes``, for which the bar grows by
+    ``2·P_ROUNDING·magnitude``.  That route rounds P and dS to the input's
+    16-bit type before the products dV = Pᵀ dO, dK = dSᵀ q and dQ = dS k;
+    rounding each factor by at most ``P_ROUNDING`` relative moves each
+    gradient by at most ``P_ROUNDING`` times the same product of absolute
+    values, which the helper returns; the bar allows twice that.  (A
+    float16 P or dS below 2^-14 rounds by at most 2^-25 absolutely: the
+    float32 term covers that.)"""
     a = plain.double().abs()
     f32 = 2e-5 * (a + (float(a.max()) if a.numel() else 0.0))
     if plain.dtype == torch.float32:
         return f32
-    return ulp(plain) + f32
+    bar = ulp(plain) + f32
+    if magnitude is not None:
+        bar = bar + 2.0 * P_ROUNDING[plain.dtype] * magnitude.double()
+    return bar
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -225,36 +266,80 @@ def bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return delta
 
 
+def _bwd_route(q, route):
+    """``route``, or :func:`route_for`'s choice when None; raises for a
+    route the inputs cannot take."""
+    hd = q.shape[3]
+    if route is None:
+        return route_for(q.dtype, hd)
+    if route not in ROUTES:
+        raise ValueError(f"flash_attention backward: route {route!r} is "
+                         f"not one of {ROUTES}")
+    if route == TENSOR_CORES and route_for(q.dtype, hd) != TENSOR_CORES:
+        raise ValueError(f"flash_attention backward: the tensor_cores route "
+                         f"takes bfloat16/float16 with hd <= "
+                         f"{TC_BWD_MAX_HEAD_DIM}, got {q.dtype}, hd {hd}")
+    return route
+
+
+def _count(name, route):
+    _build.LAUNCH_COUNTS[name] += 1
+    _build.LAUNCH_COUNTS[f"{name}:{route}"] += 1
+
+
 def bwd_dkdv(q, k, v, dout, lse, delta, *, causal, window, q_offset,
-             logit_cap):
+             logit_cap, route=None):
     """Kernel (b): → (dk, dv) like k, from contiguous CUDA q, k, v, dout
-    and the float32 (B, H, Sq) lse and D."""
+    and the float32 (B, H, Sq) lse and D.  ``route`` (internal: tests and
+    measurements) forces one of :data:`ROUTES`; by default
+    :func:`route_for` picks it.  On the ``tensor_cores`` route with GQA
+    (H > KV) each query head's float32 partials go to a scratch of
+    2 x (B, Sk, H, hd), which a second launch sums per group."""
     B, Sq, H, hd = q.shape
-    _build.check_grid("flash_attention_bwd_dkdv", 1, B * k.shape[2])
+    Sk, KV = k.shape[1], k.shape[2]
+    route = _bwd_route(q, route)
+    scratch = None
+    if route == TENSOR_CORES:
+        _build.check_grid("flash_attention_bwd_dkdv", B * H, -(-Sk // _TC_BK))
+        if H != KV:
+            scratch = torch.empty((2, B, Sk, H, hd), dtype=torch.float32,
+                                  device=q.device)
+    else:
+        _build.check_grid("flash_attention_bwd_dkdv", 1, B * KV)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    args = _bwd_args(q, k, causal, window, q_offset, logit_cap)
     with torch.cuda.device(q.device):
-        err = _build.load().sira_flash_bwd_dkdv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_bwd_args(q, k, causal, window, q_offset, logit_cap))
+        lib = _build.load()
+        if route == TENSOR_CORES:
+            err = lib.sira_flash_bwd_dkdv_tc(
+                *ptrs, None if scratch is None else scratch.data_ptr(),
+                *args)
+        else:
+            err = lib.sira_flash_bwd_dkdv(*ptrs, *args)
     _build.check_launch("flash_attention_bwd_dkdv", err)
-    _build.LAUNCH_COUNTS["flash_attention_bwd_dkdv"] += 1
+    _count("flash_attention_bwd_dkdv", route)
     return dk, dv
 
 
 def bwd_dq(q, k, v, dout, lse, delta, *, causal, window, q_offset,
-           logit_cap):
-    """Kernel (c): → dq like q, from the inputs of :func:`bwd_dkdv`."""
+           logit_cap, route=None):
+    """Kernel (c): → dq like q, from the inputs of :func:`bwd_dkdv`;
+    ``route`` as there."""
     B, Sq, H, hd = q.shape
+    route = _bwd_route(q, route)
     _build.check_grid("flash_attention_bwd_dq", 1, B * H)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _build.load().sira_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_bwd_args(q, k, causal, window, q_offset, logit_cap))
+        lib = _build.load()
+        fn = lib.sira_flash_bwd_dq_tc if route == TENSOR_CORES \
+            else lib.sira_flash_bwd_dq
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 *_bwd_args(q, k, causal, window, q_offset, logit_cap))
     _build.check_launch("flash_attention_bwd_dq", err)
-    _build.LAUNCH_COUNTS["flash_attention_bwd_dq"] += 1
+    _count("flash_attention_bwd_dq", route)
     return dq
 
 
@@ -267,12 +352,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
                         window: int = 0, q_offset: int = 0,
-                        logit_cap: float = 0.0):
+                        logit_cap: float = 0.0, route=None):
     """→ (dq, dk, dv) in the inputs' types, from the forward's ``out`` and
     ``lse`` (:func:`flash_attention_fwd_lse`) and the output gradient
     ``dout``: three kernel launches on the card (D, dK/dV, dQ; no atomics,
     so the bits repeat), ``ref.flash_attention_bwd_ref`` for CPU
-    tensors."""
+    tensors.  ``route`` (internal: tests and measurements) forces the
+    route of dK/dV and dQ (:func:`bwd_dkdv`)."""
     window, q_offset = int(window), int(q_offset)
     _check(q, k, v, window)
     kw = dict(causal=causal, window=window, q_offset=q_offset,
@@ -292,9 +378,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     q, k, v, out, dout = map(_dense, (q, k, v, out, dout))
     lse = lse.contiguous()
+    route = _bwd_route(q, route)
     delta = bwd_delta(out, dout)
-    dk, dv = bwd_dkdv(q, k, v, dout, lse, delta, **kw)
-    dq = bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = bwd_dkdv(q, k, v, dout, lse, delta, route=route, **kw)
+    dq = bwd_dq(q, k, v, dout, lse, delta, route=route, **kw)
     return dq, dk, dv
 
 

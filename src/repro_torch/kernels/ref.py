@@ -161,6 +161,27 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
     return torch.logsumexp(s, dim=-1).reshape(B, Sq, H).permute(0, 2, 1)
 
 
+def _bwd_factors(q, k, v, out, lse, dout, *, causal, window, q_offset,
+                 logit_cap):
+    """The backward's factors in the working type: q·hd^-0.5 (B, Sq, KV,
+    g, hd), P and dS (B, Sq, KV, g, Sk), dout (B, Sq, KV, g, hd)."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    wt = _work_dtype(q)
+    qf, s, t, mask = _scores(q, k, causal=causal, window=window,
+                             q_offset=q_offset, logit_cap=logit_cap)
+    rows = lse.to(wt).permute(0, 2, 1).reshape(B, Sq, KV, H // KV)[..., None]
+    m = mask[None, :, None, None, :]
+    p = torch.where(m, torch.exp(s - rows), (rows < DEAD_LSE).to(wt) / Sk)
+    do = dout.to(wt).reshape(B, Sq, KV, H // KV, hd)
+    d = (do * out.to(wt).reshape(B, Sq, KV, H // KV, hd)).sum(-1)
+    dp = torch.einsum("bqkgh,bskh->bqkgs", do, v.to(wt))
+    ds = torch.where(m, p * (dp - d[..., None]), 0.0)
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    return qf, p, ds, do
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, out: torch.Tensor,
                             lse: torch.Tensor, dout: torch.Tensor, *,
@@ -176,21 +197,36 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     has dS = 0 and P = 0, but in a row that sees no key (lse below
     ``DEAD_LSE``) P = 1/Sk: its forward averaged v over every key."""
     B, Sq, H, hd = q.shape
-    _, Sk, KV, _ = k.shape
-    wt = _work_dtype(q)
-    qf, s, t, mask = _scores(q, k, causal=causal, window=window,
-                             q_offset=q_offset, logit_cap=logit_cap)
-    rows = lse.to(wt).permute(0, 2, 1).reshape(B, Sq, KV, H // KV)[..., None]
-    m = mask[None, :, None, None, :]
-    p = torch.where(m, torch.exp(s - rows), (rows < DEAD_LSE).to(wt) / Sk)
-    do = dout.to(wt).reshape(B, Sq, KV, H // KV, hd)
-    d = (do * out.to(wt).reshape(B, Sq, KV, H // KV, hd)).sum(-1)
+    qf, p, ds, do = _bwd_factors(q, k, v, out, lse, dout, causal=causal,
+                                 window=window, q_offset=q_offset,
+                                 logit_cap=logit_cap)
+    wt = qf.dtype
     dv = torch.einsum("bqkgs,bqkgh->bskh", p, do)
-    dp = torch.einsum("bqkgh,bskh->bqkgs", do, v.to(wt))
-    ds = torch.where(m, p * (dp - d[..., None]), 0.0)
-    if t is not None:
-        ds = ds * (1.0 - t * t)
     dk = torch.einsum("bqkgs,bqkgh->bskh", ds, qf)
     dq = torch.einsum("bqkgs,bskh->bqkgh", ds, k.to(wt)) * hd ** -0.5
     return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def flash_attention_bwd_magnitudes(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, out: torch.Tensor,
+                                   lse: torch.Tensor, dout: torch.Tensor, *,
+                                   causal: bool = True, window: int = 0,
+                                   q_offset: int = 0,
+                                   logit_cap: float = 0.0):
+    """The products of :func:`flash_attention_bwd_ref` taken over absolute
+    values, (|dS|·|k|·hd^-0.5, |dS|ᵀ·|q·hd^-0.5|, Pᵀ·|dout|), shaped like
+    (dq, dk, dv), in the working type (float32, float64 for float64
+    inputs): rounding P and dS by at most a relative r before the three
+    products moves each gradient by at most r times its entry here (what
+    ``flash_attention.grad_tolerance`` allows the tensor-core backward)."""
+    B, Sq, H, hd = q.shape
+    qf, p, ds, do = _bwd_factors(q, k, v, out, lse, dout, causal=causal,
+                                 window=window, q_offset=q_offset,
+                                 logit_cap=logit_cap)
+    ads = ds.abs()
+    mag_v = torch.einsum("bqkgs,bqkgh->bskh", p, do.abs())
+    mag_k = torch.einsum("bqkgs,bqkgh->bskh", ads, qf.abs())
+    mag_q = torch.einsum("bqkgs,bskh->bqkgh", ads,
+                         k.to(qf.dtype).abs()) * hd ** -0.5
+    return mag_q.reshape(B, Sq, H, hd), mag_k, mag_v

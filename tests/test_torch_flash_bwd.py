@@ -16,6 +16,11 @@ numpy inputs made from a seed.
   where it runs the plain forward and backward: this holds the wiring,
   not the kernels, which run only on a card (``tests/test_torch_gpu.py``,
   ``python3 chip_smoke.py``).
+- The tensor-core backward's arithmetic (P and dS rounded to 16 bits
+  before the three products), emulated in plain PyTorch, within
+  ``grad_tolerance`` with its rounding term of the plain backward and of
+  ``jax.vjp``; ``ref.flash_attention_bwd_magnitudes`` against float64;
+  ``route_for``.
 """
 import jax
 import jax.numpy as jnp
@@ -27,8 +32,9 @@ from torch.utils.checkpoint import checkpoint
 from repro.models.attention import flash_attention as j_model_fa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (
-    FlashAttention, flash_attention_bwd, flash_attention_fwd,
-    flash_attention_fwd_lse, grad_tolerance, ulp)
+    CUDA_CORES, FlashAttention, TENSOR_CORES, bwd_dkdv, flash_attention_bwd,
+    flash_attention_fwd, flash_attention_fwd_lse, grad_tolerance, route_for,
+    ulp)
 
 # (B, Sq, Sk, H, KV, hd, keywords): causal, window, q_offset, logit_cap,
 # GQA groups 1 and 3, lengths that no chunk divides
@@ -236,3 +242,110 @@ def test_grad_tolerance_covers_another_summation_order(case, dtype):
                      <= bar).all())
         if dtype != torch.float32:
             assert bool((bar >= ulp(plain)).all())
+
+
+_16BIT = (torch.bfloat16, torch.float16)
+
+
+def _rounded_bwd(q, k, v, out, lse, dout, kw):
+    """The tensor-core backward's arithmetic in plain PyTorch: P and dS
+    of the plain backward (float32) rounded to q's 16-bit type before
+    dV = Pᵀ dO, dK = dSᵀ q and dQ = dS k, whose float32 sums are scaled
+    by hd^-0.5 after the dot (dK, dQ), then rounded once."""
+    B, Sq, H, hd = q.shape
+    full = {**DEFAULTS, **kw}
+    _, p, ds, do = tref._bwd_factors(q, k, v, out, lse, dout, **full)
+    r16 = [x.to(q.dtype).float() for x in (p, ds)]
+    dv = torch.einsum("bqkgs,bqkgh->bskh", r16[0], do)
+    dk = torch.einsum("bqkgs,bqkgh->bskh", r16[1], q.float().reshape(
+        do.shape)) * hd ** -0.5
+    dq = torch.einsum("bqkgs,bskh->bqkgh", r16[1], k.float()) * hd ** -0.5
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+@pytest.mark.parametrize("dtype", _16BIT)
+@pytest.mark.parametrize("case", list(CASES) + list(DEAD_CASES))
+def test_p_and_ds_rounding_stays_within_the_tensor_core_tolerance(case,
+                                                                  dtype):
+    """The ``tensor_cores`` route is held to ``grad_tolerance(plain,
+    magnitude)``.  The plain backward with P and dS rounded to 16 bits
+    stays within that bar of the unrounded plain backward on the same out
+    and lse (what the kernel is compared with on the card), and of the
+    reference's ``jax.vjp`` gradient of the same 16-bit values (fed the
+    float32 forward's out and lse, as the reference differentiates its
+    float32 arithmetic), so the bar follows from the rounding and is no
+    fit to the kernel."""
+    B, Sq, Sk, H, KV, hd, kw = {**CASES, **DEAD_CASES}[case]
+    q, k, v, dout = (_t(a).to(dtype) for a in _inputs(
+        len(case) + 5, B, Sq, Sk, H, KV, hd, np.float32))
+    out, lse = flash_attention_fwd_lse(q, k, v, **kw)
+    got = _rounded_bwd(q, k, v, out, lse, dout, kw)
+    plain = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    mags = tref.flash_attention_bwd_magnitudes(q, k, v, out, lse, dout,
+                                               **kw)
+    for g, w, m in zip(got, plain, mags):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        err = (g.double() - w.double()).abs()
+        assert bool((err <= grad_tolerance(w, m)).all()), float(err.max())
+
+    f32 = [t.float() for t in (q, k, v, dout)]
+    out32, lse32 = flash_attention_fwd_lse(*f32[:3], **kw)
+    got = _rounded_bwd(q, k, v, out32, lse32, dout, kw)
+    mags = tref.flash_attention_bwd_magnitudes(q, k, v, out32, lse32, dout,
+                                               **kw)
+    full = {**DEFAULTS, **kw}
+    _, vjp = jax.vjp(lambda a, b, c: j_model_fa(a, b, c, chunk=4, **full),
+                     *(jnp.asarray(t.numpy()) for t in f32[:3]))
+    want = vjp(jnp.asarray(f32[3].numpy()))
+    for g, w, m in zip(got, want, mags):
+        w = _t(np.array(w, np.float32)).to(dtype)
+        err = (g.double() - w.double()).abs()
+        assert bool((err <= grad_tolerance(w, m)).all()), float(err.max())
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(DEAD_CASES))
+def test_bwd_magnitudes_match_float64(case):
+    """``flash_attention_bwd_magnitudes`` in float32 within 1e-5 relative
+    of the same in float64 (sums of non-negative terms), and in float64
+    each one bounds its gradient (|dq| <= |dS||k|·hd^-0.5, ...)."""
+    B, Sq, Sk, H, KV, hd, kw = {**CASES, **DEAD_CASES}[case]
+    x64 = [_t(a) for a in _inputs(len(case) + 6, B, Sq, Sk, H, KV, hd)]
+    out64 = tref.flash_attention_ref(*x64[:3], **kw)
+    lse64 = tref.flash_attention_lse_ref(*x64[:2], **kw)
+    m64 = tref.flash_attention_bwd_magnitudes(*x64[:3], out64, lse64,
+                                              x64[3], **kw)
+    grads = tref.flash_attention_bwd_ref(*x64[:3], out64, lse64, x64[3],
+                                         **kw)
+    x32 = [t.float() for t in (*x64[:3], out64, lse64, x64[3])]
+    m32 = tref.flash_attention_bwd_magnitudes(*x32, **kw)
+    for a, b, g in zip(m32, m64, grads):
+        assert a.dtype == torch.float32 and a.shape == g.shape
+        assert b.dtype == torch.float64 and bool((b >= 0).all())
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(b.max()))
+        assert bool((g.abs() <= b * (1 + 1e-12) + 1e-300).all())
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_route_for(dtype, hd):
+    """bfloat16/float16 with hd <= 128 take the tensor cores; float32
+    (exact float32 has no tensor-core path) and hd 256 the CUDA cores."""
+    want = TENSOR_CORES if dtype != torch.float32 and hd <= 128 \
+        else CUDA_CORES
+    assert route_for(dtype, hd) == want
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.float32, 64, TENSOR_CORES), (torch.bfloat16, 256, TENSOR_CORES),
+    (torch.bfloat16, 64, "warp_specialized")])
+def test_a_forced_route_the_inputs_cannot_take_raises(dtype, hd, route):
+    """Before any launch (so also without a card): no silent fallback."""
+    q = torch.zeros((1, 4, 2, hd), dtype=dtype)
+    k = torch.zeros((1, 4, 1, hd), dtype=dtype)
+    lse = torch.zeros((1, 2, 4))
+    with pytest.raises(ValueError):
+        bwd_dkdv(q, k, k, q, lse, lse, causal=True, window=0, q_offset=0,
+                 logit_cap=0.0, route=route)

@@ -27,11 +27,13 @@ from repro_torch.core import build_flow
 from repro_torch.core.workloads import WORKLOADS
 from repro_torch.kernels import _build, ops as kops
 from repro_torch.kernels.flash_attention import (
-    BWD_KERNELS, flash_attention_bwd, flash_attention_fwd,
-    flash_attention_fwd_lse, grad_tolerance, tolerance)
+    BWD_KERNELS, CUDA_CORES, ROUTES as BWD_ROUTES, TENSOR_CORES,
+    flash_attention_bwd, flash_attention_fwd, flash_attention_fwd_lse,
+    grad_tolerance, route_for, tolerance)
 from repro_torch.kernels.int_matmul import ROUTES, TENSOR_CORES, k_major
 from repro_torch.kernels.multithreshold import ROUTES as MT_ROUTES
 from repro_torch.kernels.ref import (DEAD_LSE, flash_attention_bwd_ref,
+                                     flash_attention_bwd_magnitudes,
                                      flash_attention_lse_ref,
                                      flash_attention_ref)
 from repro_torch.launch import train as launch_train
@@ -399,13 +401,17 @@ def test_flash_attention_kernel_refuses_16_bit_rows_not_a_multiple_of_8(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", BWD_ROUTES)
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 @pytest.mark.parametrize("case", list(FLASH_CASES))
-def test_flash_attention_backward_kernels_equal_plain_version(case, dtype):
+def test_flash_attention_backward_kernels_equal_plain_version(case, dtype,
+                                                              route):
     """The forward's lse within 1e-5 of the plain one (rows that see no
-    key aside); dq, dk, dv of the three backward kernels (one launch each)
-    within ``grad_tolerance`` of the plain backward on the same out and
-    lse, and bit-equal over two calls (no atomics)."""
+    key aside); dq, dk, dv of the three backward kernels (one launch each,
+    dK/dV and dQ on the forced route) within ``grad_tolerance`` of the
+    plain backward on the same out and lse (on the ``tensor_cores`` route
+    with the term for its rounding of P and dS), and bit-equal over two
+    calls (no atomics).  A route the inputs cannot take raises."""
     if not torch.cuda.is_available():
         pytest.skip(NEEDS_CARD)
     B, Sq, Sk, H, KV, hd, kw = FLASH_CASES[case]
@@ -415,21 +421,29 @@ def test_flash_attention_backward_kernels_equal_plain_version(case, dtype):
                      for shape in ((B, Sq, H, hd), (B, Sk, KV, hd),
                                    (B, Sk, KV, hd), (B, Sq, H, hd)))
     out, lse = flash_attention_fwd_lse(q, k, v, **kw)
+    if route == TENSOR_CORES and route_for(dt, hd) != TENSOR_CORES:
+        with pytest.raises(ValueError):
+            flash_attention_bwd(q, k, v, out, lse, dout, route=route, **kw)
+        return
     lse_p = flash_attention_lse_ref(q, k, **kw)
     live = lse_p > DEAD_LSE
     assert torch.equal(live, lse > DEAD_LSE)
     assert bool(((lse - lse_p).abs() <= 1e-5 * lse_p.abs().clamp_min(1.0))
                 [live].all())
     _build.reset_launch_counts()
-    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, route=route, **kw)
     assert all(_build.LAUNCH_COUNTS[n] == 1 for n in BWD_KERNELS)
-    again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(_build.LAUNCH_COUNTS[f"{n}:{route}"] == 1
+               for n in BWD_KERNELS[1:])
+    again = flash_attention_bwd(q, k, v, out, lse, dout, route=route, **kw)
     want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    mags = flash_attention_bwd_magnitudes(q, k, v, out, lse, dout, **kw) \
+        if route == TENSOR_CORES else (None,) * 3
     torch.cuda.synchronize()
-    for a, b, w in zip(got, again, want):
+    for a, b, w, m in zip(got, again, want, mags):
         assert a.dtype == dt and a.shape == w.shape and torch.equal(a, b)
         err = (a.double() - w.double()).abs()
-        assert bool((err <= grad_tolerance(w)).all()), float(err.max())
+        assert bool((err <= grad_tolerance(w, m)).all()), float(err.max())
 
 
 @pytest.mark.gpu
@@ -646,6 +660,27 @@ def test_lm_loss_on_the_card_has_a_gradient_through_the_kernels():
         attn_mod.flash_attention = kernel
     for a, w in zip(got, want):
         assert bool(((a - w).abs() <= 1e-4 * w.abs().max()).all())
+
+
+@pytest.mark.gpu
+def test_bf16_lm_loss_backward_takes_only_the_tensor_core_route():
+    """The reduced qwen2 in bfloat16: every dK/dV and dQ launch of
+    ``Model.loss``'s backward is on the ``tensor_cores`` route (one per
+    layer), none on ``cuda_cores``, and the gradient is finite."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", reduced=True),
+                              dtype=torch.bfloat16)
+    assert route_for(torch.bfloat16, cfg.hd) == TENSOR_CORES
+    model = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 65), device="cuda")
+    _build.reset_launch_counts()
+    got = _lm_grads(model, toks)
+    for n in BWD_KERNELS[1:]:
+        assert _build.LAUNCH_COUNTS[n] == cfg.n_layers
+        assert _build.LAUNCH_COUNTS[f"{n}:{TENSOR_CORES}"] == cfg.n_layers
+        assert _build.LAUNCH_COUNTS[f"{n}:{CUDA_CORES}"] == 0
+    assert all(bool(torch.isfinite(a).all()) for a in got)
 
 
 @pytest.mark.gpu
