@@ -6,7 +6,7 @@ Run from the repository root, no arguments, one card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
-use), then runs eleven phases and prints one JSON object per line:
+use), then runs twelve phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds,
                the HGMMA (16-bit wgmma) instructions of flash_attention's
@@ -172,6 +172,31 @@ use), then runs eleven phases and prints one JSON object per line:
                run with a checkpoint every 10 steps killed at step 10,
                and the same command resumes there and ends in the
                straight run's state, bit for bit
+  launch       tensor parallelism (``launch/``, last): two ranks, each its
+               own process (``launch/ranks.py``), gloo, both on cuda:0
+               (NCCL refuses two ranks on one card; gloo stages the
+               tensors through the host).  qwen2-1.5b at full width,
+               float32, seeded, split over the "model" axis (each rank 6
+               query heads, 1 KV head, half the vocabulary): (a) the
+               1 x 1024 prefill through each rank's ``Model.forward``
+               within 1e-4 of the logit scale of the whole model, the
+               same logits on both ranks, 28 flash_attention launches per
+               rank and forward; (b) ``ServingEngine(ServingConfig(
+               mesh=layout))``, 4 greedy requests (prompts 64-256, 32 new
+               tokens), fp and int8 pools (``max_step`` 1.4), ``wo``,
+               ``w_down`` x1024: both ranks' streams equal, and equal to
+               the whole engine's but for one near-tie flip; each rank's
+               pool half the whole pool's bytes; (c) ``compressed_psum``
+               on 1M float32 elements within 2·Σ_r scale_r of the plain
+               sum, bytes counted; (d) the dry run
+               (``launch/dryrun.py``) at layout (1, 1) on the bf16 1 x
+               32768 prefill (measured again through its CLI's
+               ``--measure``)
+               and on lm_train's step (its numbers, not run again):
+               predicted parameter and optimizer bytes equal to the real
+               ones, predicted and measured peak memory, the roofline's
+               compute and memory seconds, the bound's share of the
+               measured time and the model-FLOP utilisation
 
 then a ``{"kernels": [...]}`` line (the four TPU kernels' counterparts
 and the backward kernels, dK/dV and dQ once per route; per kernel:
@@ -235,7 +260,11 @@ from repro_torch.kernels.flash_attention import (            # noqa: E402
 from repro_torch.kernels.ref import (                         # noqa: E402
     DEAD_LSE, flash_attention_bwd_magnitudes, flash_attention_bwd_ref,
     flash_attention_lse_ref, flash_attention_ref)
+from repro_torch.configs import ShapeCell                   # noqa: E402
+from repro_torch.launch import dryrun as lm_dryrun           # noqa: E402
 from repro_torch.launch import train as lm_trainer      # noqa: E402
+from repro_torch.launch.mesh import make_layout              # noqa: E402
+from repro_torch.launch.ranks import Procs, run_ranks        # noqa: E402
 from repro_torch.models import attention as lm_attention     # noqa: E402
 from repro_torch.models import moe as lm_moe                 # noqa: E402
 from repro_torch.models.convert import ParamTree             # noqa: E402
@@ -304,7 +333,17 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def emit(obj: dict) -> None:
+#: host seconds at the last phase line (the first: the script's start)
+_LAST_EMIT = [time.perf_counter()]
+
+
+def emit(obj: dict, timed: bool = True) -> None:
+    """Print a line; a phase's line gets ``phase_s``, the host seconds
+    since the previous phase line (the env line's: since the start)."""
+    now = time.perf_counter()
+    if timed:
+        obj = dict(obj, phase_s=now - _LAST_EMIT[0])
+        _LAST_EMIT[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1964,27 +2003,120 @@ def lm_bf16_run(model, cfg, B, S, reps) -> dict:
                 memory_allocated_before=resident, max_memory_allocated=peak)
 
 
-def phase_lm_prefill() -> dict:
-    # counts to 0 just before this path, read just after
+def float32_model(arch: str):
+    """The float32 model of ``arch``'s checks: qwen2-1.5b drawn in float32
+    (``lm_prefill``), a family a float32 copy of its seeded bf16 weights,
+    cut to ``FAMILY_F32_LAYERS`` (drawing the cut model draws the same
+    first layers: the init draws the embedding and head, then the layers
+    in order), MoE at no-drop capacity (``lm_families``)."""
+    cfg = get_config(arch)
+    if arch == LM_ARCH:
+        return lm_model(dataclasses.replace(cfg, dtype=torch.float32))
+    cfg_cut = dataclasses.replace(
+        cfg, n_layers=FAMILY_F32_LAYERS.get(arch, cfg.n_layers))
+    p32 = lm_model(cfg_cut).params.to(torch.float32)
+    cfg32 = dataclasses.replace(cfg_cut, dtype=torch.float32)
+    if cfg.family == "moe":
+        cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    m32 = get_model(cfg32)
+    m32.params = p32
+    return m32
+
+
+#: the jobs of the float32 checks, longest first
+FLOAT32_JOBS = [f"float32:{a}" for a in (
+    LM_ARCH, "granite-moe-3b-a800m", "zamba2-2.7b", "mamba2-780m",
+    "qwen2-moe-a2.7b")]
+#: processes such checks run in at once (their models and the parent's
+#: fit the card's 80 GB together)
+MAX_WORKERS = 3
+
+
+def run_worker(job: str, out: str) -> None:
+    """``chip_smoke.py --worker JOB OUT``: one check job in a process of
+    its own, its result and the kernel launches it counted (from 0 in
+    this process) in OUT.  Jobs: ``float32:ARCH`` (``lm_float32_checks``
+    of ``float32_model(ARCH)``), ``serve_inv:fp`` / ``serve_inv:int8``
+    (``serve_invariants`` on ``serve_float32_model``) and
+    ``serve_static``."""
+    kind, _, arg = job.partition(":")
+    if kind == "float32":
+        model = float32_model(arg)
+        _build.reset_launch_counts()
+        res = lm_float32_checks(model, *(LM_F32 if arg == LM_ARCH
+                                         else FAMILY_F32))
+    elif kind == "serve_inv":
+        m32, spec_i8 = serve_float32_model()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = serve_invariants(m32, arg, "fp" if arg == "fp" else spec_i8)
+        res["seconds"] = time.perf_counter() - t0
+    elif kind == "serve_static":
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = serve_static()
+        res["seconds"] = time.perf_counter() - t0
+    else:
+        raise ValueError(f"unknown worker job {job!r}")
+    res["launches"] = {k: _build.LAUNCH_COUNTS[k] for k in KERNEL_META}
+    pathlib.Path(out).write_text(json.dumps(res))
+
+
+class Workers(Procs):
+    """Check jobs (``run_worker``), each in a process of its own, at most
+    ``MAX_WORKERS`` at a time, in the order given.  The checks that run
+    this way are host-bound token-by-token decodes; nothing timed runs
+    beside them (each phase waits for its jobs before it times).  A
+    failed check fails its process, and ``wait`` and ``result`` raise
+    with the end of its output; ``stop`` kills what still runs."""
+
+    def __init__(self, tmp: pathlib.Path, jobs):
+        self.tmp, self.results = tmp, {}
+        super().__init__(
+            {job: [sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
+                   job, str(self._out(job))] for job in jobs},
+            tmp, max_parallel=MAX_WORKERS, cwd=str(ROOT))
+
+    def _out(self, job: str) -> pathlib.Path:
+        return self.tmp / f"{job}.json"
+
+    def result(self, job: str) -> dict:
+        if job not in self.results:
+            self.wait()
+            self.results[job] = json.loads(self._out(job).read_text())
+        return self.results[job]
+
+
+def phase_lm_prefill(f32: Workers) -> dict:
+    # counts to 0 just before this path, read just after (with the count
+    # of the process that ran the float32 checks)
     _build.reset_launch_counts()
     cfg = get_config(LM_ARCH)
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
            cfg.vocab_padded) == (28, 1536, 12, 2, 8960, 152064),
           f"{LM_ARCH} is not at its published width")
-    runs = [lm_float32_checks(
-        lm_model(dataclasses.replace(cfg, dtype=torch.float32)), *LM_F32)]
-    torch.cuda.empty_cache()
     model = lm_model(cfg)
-    runs.append(lm_bf16_accuracy(model, cfg))
+    accuracy = lm_bf16_accuracy(model, cfg)     # beside the float32 checks
+    f32_s = f32.wait()
+    runs = [f32.result(FLOAT32_JOBS[0]), accuracy]
     runs += [lm_bf16_run(model, cfg, B, S, reps) for B, S, reps in LM_BF16]
     del model
     torch.cuda.empty_cache()
     return dict(phase="lm_prefill", arch=LM_ARCH, seed=LM_SEED,
                 params=cfg.param_count(), runs=runs,
+                float32_checks_s=f32_s,
                 note="ms_per_prefill: host clock around forward calls "
-                     "ended by a synchronize, after one warm call",
+                     "ended by a synchronize, after one warm call; the "
+                     "float32 checks of this phase and of lm_families ran "
+                     "in processes of their own, at most "
+                     f"{MAX_WORKERS} at a time, beside the bf16 "
+                     "accuracy check (so their decode seconds are not "
+                     "those of a card to themselves); the timed runs ran "
+                     "alone",
                 launches=dict(flash_attention=_build.LAUNCH_COUNTS[
-                    "flash_attention"]))
+                    "flash_attention"] + runs[0]["launches"][
+                        "flash_attention"]))
 
 
 # --------------------------------------------------------------------------
@@ -2043,9 +2175,10 @@ def moe_dispatch_check(layer, cfg) -> dict:
                 y_scale=scale)
 
 
-def lm_family(arch: str) -> dict:
+def lm_family(arch: str, f32: Workers) -> dict:
     """One config: float32 checks at ``FAMILY_F32`` (at no-drop capacity
-    for MoE, as the reference's decode test), the MoE dispatch against
+    for MoE, as the reference's decode test; run by ``f32``, in a process
+    of their own: ``float32_model``), the MoE dispatch against
     its oracle, the bf16 logits against a float32 forward of the same
     weights, and bf16 prefills timed.  The float32 model is a float32 copy
     of the bf16 model's weights (its first ``FAMILY_F32_LAYERS`` layers
@@ -2056,16 +2189,8 @@ def lm_family(arch: str) -> dict:
     cut = FAMILY_F32_LAYERS.get(arch, cfg.n_layers)
     cfg_cut = dataclasses.replace(cfg, n_layers=cut)
     p32 = first_layers(model.params, cut).to(torch.float32)
-    cfg32 = dataclasses.replace(cfg_cut, dtype=torch.float32)
-    if cfg.family == "moe":
-        cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
-    m32 = get_model(cfg32)
-    m32.params = p32
     out = dict(arch=arch, family=cfg.family, params=cfg.param_count(),
-               float32_layers=cut,
-               float32=lm_float32_checks(m32, *FAMILY_F32))
-    del m32
+               float32_layers=cut, float32=f32.result(f"float32:{arch}"))
     if cfg.family == "moe":
         out["dispatch"] = moe_dispatch_check(p32.layers[0].moe, cfg)
     m16 = model
@@ -2084,11 +2209,12 @@ def lm_family(arch: str) -> dict:
     return out
 
 
-def phase_lm_families() -> dict:
+def phase_lm_families(f32: Workers) -> dict:
     t0 = time.perf_counter()
-    # counts to 0 just before this path, read just after
+    # counts to 0 just before this path, read just after (with the counts
+    # of the processes that ran the float32 checks)
     _build.reset_launch_counts()
-    archs = [lm_family(arch) for arch in FAMILY_WIDTHS]
+    archs = [lm_family(arch, f32) for arch in FAMILY_WIDTHS]
     return dict(phase="lm_families", seed=LM_SEED, archs=archs,
                 seconds=time.perf_counter() - t0,
                 cut="qwen2-moe-a2.7b: float32 checks and the bf16 check at "
@@ -2096,7 +2222,9 @@ def phase_lm_families() -> dict:
                 note="ms_per_prefill: host clock around forward calls "
                      "ended by a synchronize, after one warm call",
                 launches=dict(flash_attention=_build.LAUNCH_COUNTS[
-                    "flash_attention"]))
+                    "flash_attention"] + sum(
+                        a["float32"]["launches"]["flash_attention"]
+                        for a in archs)))
 
 
 # --------------------------------------------------------------------------
@@ -2580,50 +2708,75 @@ def serve_bf16(model, spec_i8) -> dict:
         decode_profile=serve_decode_profile(model, reqs))
 
 
+def serve_float32_model():
+    """(the float32 copy of the served bf16 model, the int8 pool's spec):
+    seeded bf16 weights, ``wo`` and ``w_down`` x``SERVE_BRANCH_GAIN``
+    (``serve_branch_gain``), the spec from ``serve_spec_report``; what
+    ``phase_serve`` builds, for a worker process."""
+    cfg = get_config(LM_ARCH)
+    bf16 = lm_model(cfg)
+    serve_branch_gain(bf16)
+    spec_i8, _ = serve_spec_report(bf16)
+    m32 = get_model(dataclasses.replace(cfg, dtype=torch.float32))
+    m32.params = bf16.params.to(torch.float32)
+    return m32, spec_i8
+
+
+#: the serve phase's host-bound checks, run beside its untimed work
+SERVE_JOBS = ["serve_inv:fp", "serve_inv:int8", "serve_static"]
+
+
 def phase_serve(card: str) -> dict:
     t_phase = time.perf_counter()
     gc.collect()                      # the earlier phases' models
     torch.cuda.empty_cache()
-    # counts to 0 just before this path, read just after
+    # counts to 0 just before this path, read just after (with the counts
+    # of the processes that ran the invariants and the static mode)
     _build.reset_launch_counts()
     cfg = get_config(LM_ARCH)
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
            cfg.vocab) == (28, 1536, 12, 2, 128, 151936),
           f"{LM_ARCH} is not at its published width")
-    bf16 = lm_model(cfg)
-    gain = serve_branch_gain(bf16)
-    spec_i8, spec_report = serve_spec_report(bf16)
-    pools = {name: PagedKVCache(cfg, spec, SERVE_BF16["batch_slots"],
-                                SERVE_BF16["max_seq"],
-                                page_size=SERVE_PAGE,
-                                device=DEV).hbm_bytes()
-             for name, spec in (("bf16", KVCacheSpec.all_fp(cfg.n_layers)),
-                                ("int8", spec_i8))}
-    check(2 * pools["int8"] == pools["bf16"],
-          f"the int8 pool is not half the bf16 pool: {pools}")
-    spec_report["pool_bytes"] = pools
-    torch.cuda.empty_cache()
-    m32 = get_model(dataclasses.replace(cfg, dtype=torch.float32))
-    m32.params = copy.deepcopy(bf16.params).to(torch.float32)
-    t0 = time.perf_counter()
-    paged = serve_paged_vs_forward(m32, spec_i8)
-    paged["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    inv = {name: serve_invariants(m32, name, spec)
-           for name, spec in (("fp", "fp"), ("int8", spec_i8))}
-    inv["seconds"] = time.perf_counter() - t0
-    del m32
-    gc.collect()
-    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = Workers(pathlib.Path(tmp), SERVE_JOBS)
+        try:
+            bf16 = lm_model(cfg)
+            gain = serve_branch_gain(bf16)
+            spec_i8, spec_report = serve_spec_report(bf16)
+            pools = {name: PagedKVCache(cfg, spec, SERVE_BF16["batch_slots"],
+                                        SERVE_BF16["max_seq"],
+                                        page_size=SERVE_PAGE,
+                                        device=DEV).hbm_bytes()
+                     for name, spec in (
+                         ("bf16", KVCacheSpec.all_fp(cfg.n_layers)),
+                         ("int8", spec_i8))}
+            check(2 * pools["int8"] == pools["bf16"],
+                  f"the int8 pool is not half the bf16 pool: {pools}")
+            spec_report["pool_bytes"] = pools
+            torch.cuda.empty_cache()
+            m32 = get_model(dataclasses.replace(cfg, dtype=torch.float32))
+            m32.params = copy.deepcopy(bf16.params).to(torch.float32)
+            t0 = time.perf_counter()
+            paged = serve_paged_vs_forward(m32, spec_i8)
+            paged["seconds"] = time.perf_counter() - t0
+            del m32
+            gc.collect()
+            torch.cuda.empty_cache()
+            jobs_s = jobs.wait()
+            res = {job: jobs.result(job) for job in SERVE_JOBS}
+        finally:
+            jobs.stop()
+    inv = {name: res[f"serve_inv:{name}"] for name in ("fp", "int8")}
+    inv["seconds"] = jobs_s
+    static = res["serve_static"]
     t0 = time.perf_counter()
     timed = serve_bf16(bf16, spec_i8)
     timed["seconds"] = time.perf_counter() - t0
     del bf16
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    static = serve_static()
-    static["seconds"] = time.perf_counter() - t0
+    launches = {k: _build.LAUNCH_COUNTS[k] + sum(
+        r["launches"][k] for r in res.values()) for k in KERNEL_META}
     return dict(phase="serve", arch=LM_ARCH, seed=LM_SEED, card=card,
                 branch_gain=gain, kv_spec=spec_report, paged_vs_forward=paged,
                 invariants=inv, bf16=timed, static=static,
@@ -2632,8 +2785,12 @@ def phase_serve(card: str) -> dict:
                      "engine's ServingMetrics; no kernel of this repo on "
                      "the serving path (paged attention is plain "
                      "PyTorch): flash_attention runs only in the "
-                     "Model.forward oracles",
-                launches={k: _build.LAUNCH_COUNTS[k] for k in KERNEL_META})
+                     "Model.forward oracles; the invariants (fp, int8) "
+                     "and the static mode ran in processes of their own "
+                     "beside the spec and paged-vs-forward checks "
+                     "(invariants.seconds: their wall time together); "
+                     "the bf16 runs were timed alone",
+                launches=launches)
 
 
 # --------------------------------------------------------------------------
@@ -3015,6 +3172,7 @@ def lm_train_run(card: str) -> dict:
         check(all(math.isfinite(x) for x in losses) and last5 < first5,
               f"training: the loss did not fall ({first5} -> {last5})")
         step_s = statistics.median(first.step_seconds[t["warm"]:])
+        state_bytes = lm_dryrun.state_bytes(first.state)
         prof = device_profile(lambda: first.step_fn(
             first.state, first.pipeline.batch_at(t["steps"])))
         kept = tree_map(lambda x: None if x is None else
@@ -3077,7 +3235,7 @@ def lm_train_run(card: str) -> dict:
         tokens_per_s=tokens / step_s,
         model_flop_share=6.0 * n_active * tokens / (step_s * BF16_OPS_PER_S),
         active_params=n_active, max_memory_allocated=peak,
-        launches=launches,
+        state_bytes=state_bytes, launches=launches,
         profile=dict(wall_ms=prof["wall_ms"],
                      device_busy_ms=prof["device_busy_ms"],
                      idle_share=prof["idle_share"],
@@ -3127,6 +3285,155 @@ def phase_lm_train(card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase: launch — qwen2-1.5b over two ranks on the one card, compressed_psum,
+# the dry run's prediction against what the phases measured
+# --------------------------------------------------------------------------
+
+LAUNCH_PREFILL = (1, 1024)            # (B, S) of the float32 sharded prefill
+LAUNCH_PREFILL_TOL = 1e-4             # of max|logits|: lm_prefill's bar
+# sharded serving, float32: 4 greedy requests (prompt, new tokens), 4 slots
+LAUNCH_SERVE = dict(slots=4, max_seq=512, page=SERVE_PAGE, chunk=SERVE_CHUNK,
+                    requests=[(64, 32), (128, 32), (192, 32), (256, 32)],
+                    variants=["fp", "int8"], max_step=1.4)
+LAUNCH_PSUM_N = 1 << 20
+# the dry run's cells that the phases run: lm_prefill's bf16 1 x 32768
+# (the prefill_32k cell cut to batch 1, measured again through the dry
+# run's CLI) and lm_train's step
+LAUNCH_PREFILL_ARGV = ["--arch", LM_ARCH, "--shape", "prefill_32k",
+                       "--layout", "1x1", "--batch", "1", "--seq", "32768",
+                       "--measure"]
+LAUNCH_TRAIN_CELL = ShapeCell("train_2x2048", LM_TRAIN["seq"],
+                              LM_TRAIN["batch"], "train")
+
+
+def launch_ranks() -> dict:
+    """Two ranks (layout (1, 2), gloo, both on ``cuda:0``), each its own
+    process: (a) the float32 prefill of qwen2-1.5b at full width against
+    the whole model, (b) sharded serving against the whole engine (fp
+    and int8 pools; ``wo``, ``w_down`` x``SERVE_BRANCH_GAIN``), (c)
+    ``compressed_psum`` against the plain sum."""
+    cfg = get_config(LM_ARCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks(2, dict(
+            layout=[1, 2], device=DEV.type, arch=LM_ARCH, dtype="float32",
+            seed=LM_SEED, tol=LAUNCH_PREFILL_TOL, prefill_shape=LAUNCH_PREFILL,
+            serve_branch_gain=SERVE_BRANCH_GAIN, exact=False, tie=STREAM_TIE,
+            psum_n=LAUNCH_PSUM_N, pg_timeout=120.0,
+            tasks=["prefill", "serve", "psum"], **LAUNCH_SERVE), tmp,
+            timeout_s=400)
+        wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        pre = res["prefill"]
+        check(res["backend"] == "gloo" and res["device"] ==
+              str(torch.device(DEV.type, 0) if DEV.type == "cuda" else DEV),
+              f"rank {r}: {res['backend']} on {res['device']}")
+        check(pre["flash_launches"] == cfg.n_layers,
+              f"rank {r}: {pre['flash_launches']} flash_attention launches "
+              f"per sharded forward, not {cfg.n_layers}")
+        check(pre["max_abs_err"] <= LAUNCH_PREFILL_TOL * pre["logit_scale"],
+              f"rank {r}: sharded prefill {pre['max_abs_err']}")
+        for v in LAUNCH_SERVE["variants"]:
+            run = res["serve"][v]
+            check(2 * run["pool_bytes"] == run["whole_pool_bytes"],
+                  f"rank {r} {v}: pool {run['pool_bytes']} of "
+                  f"{run['whole_pool_bytes']}")
+            check(sum(run["distinct_tokens"]) > len(run["streams"]),
+                  f"rank {r} {v}: every stream repeats one token")
+        ps = res["psum"]
+        check(ps["max_abs_err"] <= ps["bound"], f"rank {r}: psum")
+    a, b = ranks
+    check(a["prefill"]["digest"] == b["prefill"]["digest"],
+          "the ranks' logits differ")
+    check(a["psum"]["digest"] == b["psum"]["digest"],
+          "the ranks' compressed_psum differ")
+    for v in LAUNCH_SERVE["variants"]:
+        check(a["serve"][v]["streams"] == b["serve"][v]["streams"],
+              f"{v}: the ranks' streams differ")
+    serve = {v: {k: a["serve"][v][k] for k in (
+        "tokens_compared", "flips", "distinct_tokens", "pool_bytes",
+        "whole_pool_bytes", "n_int8", "seconds", "decode_steps",
+        "prefill_chunks", "collectives")} for v in LAUNCH_SERVE["variants"]}
+    n = LAUNCH_PSUM_N
+    psum = dict(a["psum"], elements=n, payload_bytes=dict(
+        int8=n, int32_sum=4 * n, float32=4 * n))
+    return dict(wall_s=wall, param_bytes=a["param_bytes"],
+                whole_param_bytes=a["whole_param_bytes"],
+                prefill={k: a["prefill"][k] for k in (
+                    "B", "S", "max_abs_err", "logit_scale", "tol",
+                    "flash_launches", "collectives", "whole_first_s",
+                    "sharded_first_s")},
+                prefill_err_rank1=b["prefill"]["max_abs_err"],
+                serve=serve, psum=psum,
+                launches=sum(res["prefill"]["flash_launches"]
+                             for res in ranks),
+                rank_seconds=[res["seconds"] for res in ranks])
+
+
+def launch_roofline(train: dict) -> dict:
+    """(d) ``dryrun``'s prediction at layout (1, 1) against measurement:
+    the bf16 1 x 32768 prefill through the dry run's CLI with
+    ``--measure`` (the normal entry point, ``Model.forward``), and
+    lm_train's step from lm_train's own numbers (not run again).
+    Parameter and optimizer bytes must equal the real tensors'."""
+    one = make_layout((1, 1))
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(io.StringIO()) as cli:
+        pre, = lm_dryrun.main(LAUNCH_PREFILL_ARGV + ["--out", tmp])
+    check(pre.ok and pre.measured,
+          f"dry run of the prefill cell: {cli.getvalue()[-600:]}")
+    t = train["train"]
+    step = lm_dryrun.run_cell(LM_ARCH, LAUNCH_TRAIN_CELL.name, layout=one,
+                              shape=LAUNCH_TRAIN_CELL,
+                              microbatches=LM_TRAIN["microbatches"],
+                              remat=False)
+    check(step.ok, f"dry run of the train cell: {step.reason[-300:]}")
+    lm_dryrun.compare(step, dict(
+        seconds=t["ms_per_step"] / 1e3, peak_bytes=t["max_memory_allocated"],
+        what="lm_train's ms per step (median after the warm steps)",
+        **t["state_bytes"]))
+    check(pre.measured["param_bytes_equal"], "prefill: predicted parameter "
+          f"bytes {pre.memory['param_bytes']} != "
+          f"{pre.measured['param_bytes']}")
+    check(step.measured["param_bytes_equal"] and
+          step.measured["opt_bytes_equal"],
+          f"train: predicted {step.memory['param_bytes']} / "
+          f"{step.memory['opt_bytes']} bytes, real "
+          f"{step.measured['param_bytes']} / {step.measured['opt_bytes']}")
+    out = {c.shape: dict(cost=c.cost, memory=c.memory,
+                         roofline=c.roofline, measured=c.measured)
+           for c in (pre, step)}
+    out[pre.shape]["cli"] = " ".join(LAUNCH_PREFILL_ARGV)
+    return out
+
+
+def phase_launch(card: str, train: dict) -> dict:
+    t_phase = time.perf_counter()
+    gc.collect()                      # the earlier phases' models
+    torch.cuda.empty_cache()
+    # counts to 0 just before this path, read just after; the ranks count
+    # their own launches and hand them back
+    _build.reset_launch_counts()
+    ranks = launch_ranks()
+    t0 = time.perf_counter()
+    roof = launch_roofline(train)
+    roof["seconds"] = time.perf_counter() - t0
+    launches = _build.LAUNCH_COUNTS["flash_attention"] + ranks["launches"]
+    return dict(phase="launch", arch=LM_ARCH, card=card, layout="1x2",
+                transport="gloo, both ranks on cuda:0: all_reduce and the "
+                          "list form of all_gather staged through the host",
+                ranks=ranks, roofline=roof,
+                seconds=time.perf_counter() - t_phase,
+                note="(a) float32 1 x 1024, the sharded forward against the "
+                     "whole model in each rank; (b) float32 serving, "
+                     "streams vs the whole engine with the near-tie rule; "
+                     "(c) compressed_psum: the summed payloads are int32, "
+                     "as in the reference, so they move as many bytes as "
+                     "float32; (d) mfu: model FLOPs / (measured s x 989e12)",
+                launches=dict(flash_attention=launches))
+
+
+# --------------------------------------------------------------------------
 
 KERNEL_META = {
     "int_matmul": dict(
@@ -3163,10 +3470,17 @@ def main() -> None:
     emit(qat)
     times = phase_kernel_times(main_path["configs"])
     emit(times)
-    lm = phase_lm_prefill()           # last two: they hold the card's
-    emit(lm)                          # memory
-    fam = phase_lm_families()
-    emit(fam)
+    # the float32 checks of lm_prefill and lm_families start here, in
+    # processes of their own; lm_prefill waits for them before it times
+    with tempfile.TemporaryDirectory() as tmp:
+        f32 = Workers(pathlib.Path(tmp), FLOAT32_JOBS)
+        try:
+            lm = phase_lm_prefill(f32)
+            emit(lm)
+            fam = phase_lm_families(f32)
+            emit(fam)
+        finally:
+            f32.stop()
     serve = phase_serve(env["nvidia_smi"])
     emit(serve)
     check(serve["launches"]["flash_attention"] > 0 and
@@ -3175,11 +3489,13 @@ def main() -> None:
           f"serve: launches {serve['launches']}")
     train = phase_lm_train(env["nvidia_smi"])
     emit(train)
+    launch = phase_launch(env["nvidia_smi"], train)
+    emit(launch)
     phases = dict(main_path=main_path, sira_flow=sira, qat_chain=qat,
                   lm_prefill=lm, lm_families=fam, serve=serve,
-                  lm_train=train)
+                  lm_train=train, launch=launch)
     launches = dict(main_path["launches"], **lm["launches"])
-    for phase in (fam, serve, train):
+    for phase in (fam, serve, train, launch):
         launches["flash_attention"] += phase["launches"]["flash_attention"]
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -3214,12 +3530,15 @@ def main() -> None:
             wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"]))
-    emit(dict(kernels=kernels))
+    emit(dict(kernels=kernels), timed=False)
     print(env["nvidia_smi"], flush=True)
     emit(dict(ok=True, device=dict(
         platform="gpu", kind=torch.cuda.get_device_name(0),
-        count=torch.cuda.device_count())))
+        count=torch.cuda.device_count())), timed=False)
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        run_worker(*sys.argv[2:4])
+    else:
+        main()

@@ -18,11 +18,20 @@ from ..quant.quantizer import (QuantSpec, compute_scale, fake_quant,
 
 # ------------------------------------------------------------------ init
 
+class ShapeOnly:
+    """Stands for a generator where only shapes are wanted: the init
+    functions then build ``meta`` tensors and draw nothing
+    (``Model.init_shapes``)."""
+    device = torch.device("meta")
+
+
 def _truncated_normal(gen: torch.Generator, shape) -> torch.Tensor:
     """Standard normal truncated at ±2, float32, on the generator's
     device (the distribution of ``jax.random.truncated_normal(-2, 2)``;
     not its bits)."""
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if isinstance(gen, ShapeOnly):
+        return t
     return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
 
 

@@ -35,9 +35,24 @@ shared attention block applied after every ``attn_every`` layers):
 Layers are a list: gemma2's layer ``2i`` is the reference's ``local[i]``
 and ``2i + 1`` its ``global[i]``; the hybrid's layer ``g·attn_every + j``
 is the reference's ``layers[g][j]``.
+
+Tensor parallelism (``Model.shard(layout)``, Megatron style, following
+``launch/shardings.py``'s specs): each rank of the layout's "model" axis
+holds the columns of ``wq/wk/wv/bq/bk/bv`` and ``w_gate/w_up`` of its
+heads and of its share of ``d_ff``, the matching rows of ``wo`` and
+``w_down``, and one ``all_reduce`` sums each of those two products over
+the axis.  The embedding is vocab-parallel: a rank looks up the tokens of
+its vocab range, writes zeros for the others, and an ``all_reduce`` adds
+them (exact: one term of each sum is not zero); the tied head is split by
+column and an ``all_gather`` joins the logits before the vocab-pad mask.
+Norms and RoPE are replicated, so every rank ends with the same logits.
+``forward`` and ``decode_paged`` run sharded; ``decode_step``, ``loss``,
+fake-quant and the MoE/Mamba2/Zamba2 families refuse a "model" axis > 1
+(ROADMAP A11b).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -48,7 +63,7 @@ from ..configs.base import ArchConfig
 from ..core.lower import resolve_device
 from .attention import (attention_decode, attention_prefill, init_attention,
                         init_kv_cache, paged_attention)
-from .common import dense_init, embed_init, rms_norm, softcap
+from .common import ShapeOnly, dense_init, embed_init, rms_norm, softcap
 from .convert import ParamTree, load_reference_params, unflatten
 from .mlp import apply_mlp, init_mlp
 from .moe import apply_moe, init_moe
@@ -56,6 +71,24 @@ from .ssm import apply_mamba2, init_mamba2, init_mamba_state
 
 DENSE_FAMILIES = ("dense", "vlm", "audio")
 FAMILIES = DENSE_FAMILIES + ("moe", "ssm", "hybrid")
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """What one rank of a layout's "model" axis runs: its query and KV
+    heads, and the sum of the row-split products over the axis (nothing
+    to sum without a layout)."""
+    n_heads: int
+    n_kv: int
+    layout: Any = None
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.layout is None else \
+            self.layout.all_reduce(x, "model")
+
+
+def _full(cfg: ArchConfig, tp: Optional[TensorParallel]) -> TensorParallel:
+    return tp or TensorParallel(cfg.n_heads, cfg.n_kv_heads)
 
 
 def _init_dense_layer(gen: torch.Generator, cfg: ArchConfig
@@ -77,16 +110,18 @@ def _init_dense_layer(gen: torch.Generator, cfg: ArchConfig
     return p
 
 
-def _dense_layer_fwd(p, x, cfg: ArchConfig, *, window: int, quant=None):
-    h = attention_prefill(
-        p["attn"], rms_norm(x, p["ln1"]), n_heads=cfg.n_heads,
-        n_kv=cfg.n_kv_heads, hd=cfg.hd, theta=cfg.rope_theta,
-        logit_cap=cfg.attn_softcap, window=window, quant=quant)
+def _dense_layer_fwd(p, x, cfg: ArchConfig, *, window: int, quant=None,
+                     tp: Optional[TensorParallel] = None):
+    tp = _full(cfg, tp)
+    h = tp.reduce(attention_prefill(
+        p["attn"], rms_norm(x, p["ln1"]), n_heads=tp.n_heads,
+        n_kv=tp.n_kv, hd=cfg.hd, theta=cfg.rope_theta,
+        logit_cap=cfg.attn_softcap, window=window, quant=quant))
     if cfg.post_norms:
         h = rms_norm(h, p["post_ln1"])
     x = x + h
-    h = apply_mlp(p["mlp"], rms_norm(x, p["ln2"]), act=cfg.mlp_act,
-                  quant=quant)
+    h = tp.reduce(apply_mlp(p["mlp"], rms_norm(x, p["ln2"]),
+                            act=cfg.mlp_act, quant=quant))
     if cfg.post_norms:
         h = rms_norm(h, p["post_ln2"])
     return x + h
@@ -177,6 +212,9 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = device
         self.params: Optional[ParamTree] = None
+        #: the layout whose "model" axis this model's weights are split
+        #: over (``shard``); None: the whole model
+        self.layout = None
 
     # ------------------------------------------------------------- init
     def init(self, generator: torch.Generator) -> "Model":
@@ -185,23 +223,7 @@ class Model(nn.Module):
         std 1, norms and biases zero) on ``generator`` — the same
         distributions, not the same numbers; MoE's router float32, Mamba2's
         ``A_log``, ``D`` and ``dt_bias`` float32 and deterministic)."""
-        cfg = self.cfg
-        tree: Dict[str, Any] = {
-            "embed": embed_init(generator, cfg.vocab_padded, cfg.d_model,
-                                cfg.dtype),
-            "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
-                                      device=generator.device),
-        }
-        if not cfg.tie_embeddings:
-            tree["lm_head"] = dense_init(
-                generator, (cfg.d_model, cfg.vocab_padded), dtype=cfg.dtype)
-        layer = {"moe": _init_moe_layer, "ssm": _init_mamba_layer,
-                 "hybrid": _init_mamba_layer}.get(cfg.family,
-                                                  _init_dense_layer)
-        tree["layers"] = [layer(generator, cfg)
-                          for _ in range(cfg.n_layers)]
-        if cfg.family == "hybrid":
-            tree["shared_attn"] = _init_dense_layer(generator, cfg)
+        tree = self._draw(generator)
         self.params = ParamTree(tree).to(self.device)
         return self
 
@@ -218,12 +240,77 @@ class Model(nn.Module):
                                "or load_reference_params() first")
         return self.params
 
+    def init_shapes(self) -> Dict[str, Any]:
+        """The tree ``init`` draws, as ``meta`` tensors: shapes and
+        dtypes, no storage and no drawing (the dry run's
+        ``jax.eval_shape(model.init, ...)``)."""
+        return self._draw(ShapeOnly())
+
+    def _draw(self, gen) -> Dict[str, Any]:
+        """The weight tree drawn from ``gen`` (on its device)."""
+        cfg = self.cfg
+        tree: Dict[str, Any] = {
+            "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model,
+                                cfg.dtype),
+            "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
+                                      device=gen.device),
+        }
+        if not cfg.tie_embeddings:
+            tree["lm_head"] = dense_init(
+                gen, (cfg.d_model, cfg.vocab_padded), dtype=cfg.dtype)
+        layer = {"moe": _init_moe_layer, "ssm": _init_mamba_layer,
+                 "hybrid": _init_mamba_layer}.get(cfg.family,
+                                                  _init_dense_layer)
+        tree["layers"] = [layer(gen, cfg) for _ in range(cfg.n_layers)]
+        if cfg.family == "hybrid":
+            tree["shared_attn"] = _init_dense_layer(gen, cfg)
+        return tree
+
+    def shard(self, layout) -> "Model":
+        """A tensor-parallel copy on the same device holding this rank's
+        block of every weight (``launch/shardings.py shard_params``);
+        this model is left whole.  Raises for what is not sharded yet
+        (``check_tensor_parallel``)."""
+        from ..launch.shardings import shard_params
+        out = Model(self.cfg, self.device)
+        out.layout = layout
+        out.params = ParamTree(shard_params(self.param_tree(), layout,
+                                            self.cfg))
+        return out
+
+    def _tp(self, quant=None, what: str = "forward") -> TensorParallel:
+        """This rank's heads and reduction; ``what`` names the caller
+        refused under a "model" axis > 1."""
+        cfg, layout = self.cfg, self.layout
+        if layout is None or layout.size("model") == 1:
+            return TensorParallel(cfg.n_heads, cfg.n_kv_heads)
+        if what not in ("forward", "decode_paged") or quant is not None:
+            raise NotImplementedError(
+                f"{what}{' with fake-quant' if quant is not None else ''} "
+                f"under tensor parallelism (model axis "
+                f"{layout.size('model')}) is not ported yet (ROADMAP "
+                f"A11b)")
+        from ..launch.shardings import tp_heads
+        return TensorParallel(*tp_heads(cfg, layout), layout=layout)
+
     # ------------------------------------------------------ embeddings
     def _embed(self, params, tokens, frontend_embed):
         cfg = self.cfg
+        table = params["embed"]
+        if table.shape[0] == cfg.vocab_padded:
+            rows = table[tokens]
+        else:              # vocab-parallel: this rank's range, zeros else
+            lo = self.layout.index("model") * table.shape[0]
+            local = tokens - lo
+            hit = (local >= 0) & (local < table.shape[0])
+            rows = torch.where(
+                hit[..., None],
+                table[torch.clamp(local, 0, table.shape[0] - 1)],
+                torch.zeros((), dtype=table.dtype, device=table.device))
+            rows = self.layout.all_reduce(rows, "model")
         # the constant is rounded to the model's dtype first, as in the
         # reference (sqrt(1536) = 39.19 becomes 39.25 in bfloat16)
-        x = params["embed"][tokens] * torch.tensor(
+        x = rows * torch.tensor(
             cfg.d_model ** 0.5, dtype=cfg.dtype, device=tokens.device)
         if frontend_embed is not None:
             x = torch.cat([frontend_embed.to(x.dtype), x], dim=1)
@@ -235,7 +322,10 @@ class Model(nn.Module):
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         if not isinstance(head, torch.Tensor):       # int8-packed lm_head
             head = head["q"].to(x.dtype) * head["s"].to(x.dtype)
-        logits = softcap(torch.matmul(x, head), cfg.final_softcap)
+        logits = torch.matmul(x, head)
+        if logits.shape[-1] != cfg.vocab_padded:    # column-split head
+            logits = self.layout.all_gather(logits, "model", dim=-1)
+        logits = softcap(logits, cfg.final_softcap)
         if cfg.vocab_padded != cfg.vocab:       # in place: logits are big
             logits[..., cfg.vocab:] = -1e30
         return logits
@@ -263,6 +353,7 @@ class Model(nn.Module):
                 # reference's jax.checkpoint does
                 return checkpoint(fn, *args, use_reentrant=False, **kw)
             return fn(*args, **kw)
+        tp = self._tp(quant)
         x = self._embed(params, tokens, frontend_embed)
         layers = params["layers"]
         aux = None
@@ -284,7 +375,7 @@ class Model(nn.Module):
                 local = cfg.sliding_window and i % 2 == 0
                 x = run(_dense_layer_fwd, p, x, cfg,
                         window=cfg.sliding_window if local else 0,
-                        quant=quant)
+                        quant=quant, tp=tp)
         return self._logits(params, x), aux
 
     # ------------------------------------------------------------ cache
@@ -297,6 +388,7 @@ class Model(nn.Module):
         (n_layers, B, H, P, N) float32}.  hybrid: {"mamba": those two over
         (n_groups, attn_every), "attn": {"k", "v"} over n_groups}."""
         cfg = self.cfg
+        self._tp(what="init_cache")
         kv_dtype = kv_dtype or cfg.dtype
 
         def stacked(lead, one):
@@ -336,6 +428,7 @@ class Model(nn.Module):
         window buffer (``window=0``, ``rolling=True``: the buffer length is
         the window), so valid_from raises there."""
         cfg = self.cfg
+        self._tp(quant, what="decode_step")
         params = self._weights()
         x = self._embed(params, tokens, None)
 
@@ -380,6 +473,7 @@ class Model(nn.Module):
         only when a forward left ``_last_aux``, which nothing sets, in the
         reference as here: the MoE loss is the plain cross-entropy
         (reference fault 8, ROADMAP C; kept for parity)."""
+        self._tp(quant, what="loss")
         logits, _ = self._forward(params, tokens, frontend_embed,
                                   quant=quant, remat=remat)
         if frontend_embed is not None:
@@ -430,6 +524,7 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"paged decode needs full-context attention — "
                 f"family={cfg.family!r} sliding_window={cfg.sliding_window}")
+        tp = self._tp(quant, what="decode_paged")
         params = self._weights()
         x = self._embed(params, tokens, None)
         for layer, p in enumerate(params["layers"]):
@@ -438,18 +533,19 @@ class Model(nn.Module):
             h, _, _ = paged_attention(
                 p["attn"], rms_norm(x, p["ln1"]), kv_pages[layer]["k"],
                 kv_pages[layer]["v"], page_table, lengths,
-                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+                n_heads=tp.n_heads, n_kv=tp.n_kv, hd=cfg.hd,
                 theta=cfg.rope_theta, page_size=page_size,
                 logit_cap=cfg.attn_softcap, quant=quant, k_scale=ks,
                 v_scale=vs)
+            h = tp.reduce(h)
             if cfg.post_norms:
                 h = rms_norm(h, p["post_ln1"])
             x = x + h
             if cfg.family == "moe":
                 h, _ = _moe_ffn(p, x, cfg, quant)
             else:
-                h = apply_mlp(p["mlp"], rms_norm(x, p["ln2"]),
-                              act=cfg.mlp_act, quant=quant)
+                h = tp.reduce(apply_mlp(p["mlp"], rms_norm(x, p["ln2"]),
+                                        act=cfg.mlp_act, quant=quant))
             if cfg.post_norms:
                 h = rms_norm(h, p["post_ln2"])
             x = x + h

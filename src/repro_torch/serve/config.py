@@ -1,9 +1,9 @@
 """Validated serving configuration.
 
 Counterpart of ``src/repro/serve/config.py``: the same fields, the same
-validation and the same error types, with one difference: ``mesh`` has
-no counterpart before the port's ``launch/`` (ROADMAP A11), so any value
-other than ``None`` raises ``NotImplementedError``.
+validation and the same error types.  ``mesh`` takes the port's
+``launch.mesh.Layout`` where the reference takes a ``jax`` mesh, and any
+other value raises ``ValueError``, as there.
 
 ``ServingConfig`` consolidates the engine's construction knobs — slot
 count, cache geometry, quantized-KV selection, speculative decoding and
@@ -65,8 +65,9 @@ class ServingConfig:
 
     Scale-out:
 
-    * ``mesh`` — must be None: sharded serving waits for the port's
-      ``launch/`` (ROADMAP A11).
+    * ``mesh`` — a ``launch.mesh.Layout`` (bound to the job's ranks):
+      tensor-parallel serving over its "model" axis, every rank running
+      the same host code on the same requests; or None.
     """
     batch_slots: int
     max_seq: int
@@ -114,9 +115,10 @@ class ServingConfig:
                     "prefix_cache requires paged mode (the static engine "
                     "has no page table to share)")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh: sharded serving is not ported yet (ROADMAP A11, "
-                "launch/); pass mesh=None")
+            from ..launch.mesh import Layout
+            if not isinstance(self.mesh, Layout):
+                raise ValueError("mesh must be a repro_torch.launch.mesh."
+                                 "Layout")
 
     def replace(self, **kw) -> "ServingConfig":
         return dataclasses.replace(self, **kw)

@@ -43,6 +43,16 @@ function of (seed, request_id, token index, logits), acceptance is exact
 at any temperature: the emitted stream is the per-token stream, and
 speculation only changes how many model steps it takes.
 
+Tensor-parallel serving (``ServingConfig(mesh=layout)``, a bound
+``launch.mesh.Layout``): the engine serves a copy of the model sharded
+over the layout's "model" axis (``Model.shard``), its page pools hold the
+rank's KV heads only, and the page table, free list and prefix index
+stay global.  Every rank runs the same host code on the same requests;
+its greedy picks and Gumbel draws read the logits after the model's
+``all_gather``, which every rank holds bit for bit, so every rank takes
+the same decisions.  The KV spec is derived from the whole model first.
+Static mode under a layout is not ported (ROADMAP A11b).
+
 Prefix caching (``ServingConfig(prefix_cache=True)``) makes prefill
 incremental across requests: the engine attaches the longest cached
 prefix of each new prompt (copy-on-write shared pages, see
@@ -91,6 +101,20 @@ def gumbel_noise(seed: int, request_id: int, token_index: int,
         int(state[0]) << 32 | int(state[1]))
     u = torch.rand(n, generator=gen, dtype=torch.float64)
     return (-torch.log(-torch.log(u))).to(torch.float32)
+
+
+def local_kv_scales(spec: KVCacheSpec, model: Model, device):
+    """``spec.scales(device)`` for the KV heads ``model`` holds: all of
+    them, or a tensor-parallel rank's (``launch/shardings.py
+    kv_head_range``)."""
+    scales = spec.scales(device)
+    layout = model.layout
+    if layout is None or layout.size("model") == 1:
+        return scales
+    from ..launch.shardings import kv_head_range
+    first, n = kv_head_range(model.cfg, layout)
+    return [None if s is None else tuple(t[first:first + n] for t in s)
+            for s in scales]
 
 
 class ServingEngine:
@@ -146,6 +170,7 @@ class ServingEngine:
 
         self.config = cfg
         self.model = model
+        self.layout = cfg.mesh
         self.device = resolve_device(model.device)
         self.B = cfg.batch_slots
         self.S = cfg.max_seq
@@ -177,6 +202,10 @@ class ServingEngine:
             raise ValueError(
                 "prefix_cache requires paged mode (the static engine "
                 "has no page table to share)")
+        if mode == "static" and self.layout is not None:
+            raise NotImplementedError(
+                "static-mode serving under a layout is not ported yet "
+                "(ROADMAP A11b)")
 
         if mode == "paged":
             mcfg = model.cfg
@@ -187,13 +216,18 @@ class ServingEngine:
             else:                       # "sira-int8" / "int8" (validated)
                 spec = derive_kv_spec(model)
             self.kv_spec = spec
-            self._kv_scales = spec.scales(self.device)
+            n_kv = None
+            if self.layout is not None and self.layout.size("model") > 1:
+                from ..launch.shardings import tp_heads
+                self.model = model.shard(self.layout)
+                n_kv = tp_heads(mcfg, self.layout)[1]
+            self._kv_scales = local_kv_scales(spec, self.model, self.device)
             self.cache = PagedKVCache(mcfg, spec, cfg.batch_slots,
                                       cfg.max_seq,
                                       page_size=cfg.page_size,
                                       num_pages=cfg.num_pages,
                                       prefix_cache=cfg.prefix_cache,
-                                      device=self.device)
+                                      device=self.device, n_kv=n_kv)
             self.metrics = ServingMetrics()
             self.scheduler = Scheduler(cfg.batch_slots, cfg.max_seq,
                                        self.cache, self.metrics)

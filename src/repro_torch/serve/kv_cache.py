@@ -312,7 +312,9 @@ class PagedKVCache:
 
     Device state: per-layer {"k", "v"} pools of shape
     (num_pages, page_size, KV, hd) on ``device`` — int8 for SIRA-certified
-    layers, fp otherwise — written in place by ``Model.decode_paged``.
+    layers, fp otherwise — written in place by ``Model.decode_paged``;
+    ``n_kv`` (default: the config's KV heads) is what a tensor-parallel
+    rank holds (``launch/shardings.py kv_pool_sharding``).
     The table and free list are plain numpy/python, updated between
     steps.  ``device=None`` means the card (``"cuda"``) and raises without
     one, as every entry point of the port does.
@@ -326,7 +328,8 @@ class PagedKVCache:
     def __init__(self, cfg, spec: KVCacheSpec, batch_slots: int,
                  max_seq: int, page_size: int = 16,
                  num_pages: Optional[int] = None, fp_dtype=None,
-                 prefix_cache: bool = False, device=None):
+                 prefix_cache: bool = False, device=None,
+                 n_kv: Optional[int] = None):
         assert len(spec.layers) == cfg.n_layers
         self.cfg = cfg
         self.spec = spec
@@ -338,7 +341,8 @@ class PagedKVCache:
         self.num_pages = num_pages or batch_slots * self.max_pages + 1
         assert self.num_pages >= self.max_pages + 1, \
             "pool must hold at least one full-length request"
-        KV, hd = cfg.n_kv_heads, cfg.hd
+        # a tensor-parallel rank's pools hold its own KV heads only
+        KV, hd = n_kv or cfg.n_kv_heads, cfg.hd
         fp_dtype = fp_dtype or cfg.dtype
         shape = (self.num_pages, page_size, KV, hd)
 

@@ -10,8 +10,8 @@ intact (Karimireddy et al., 2019).
 Counterpart of ``src/repro/train/compression.py``.  ``torch.round``
 rounds half to even like ``jnp.round``, so the int8 payload equals the
 reference's bit for bit.  ``compressed_psum``, the reference's
-``shard_map`` collective, waits for the port's ``torch.distributed``
-layout (ROADMAP A11) and raises.
+``shard_map`` collective, runs over an axis of the port's
+``torch.distributed`` layout (``launch/mesh.py``) or a process group.
 """
 from __future__ import annotations
 
@@ -54,9 +54,19 @@ def init_error_feedback(grads_like: Any) -> Any:
                                           device=g.device), grads_like)
 
 
-def compressed_psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
-    """The reference's int8-payload all-reduce over a mesh axis (inside
-    ``shard_map``) has no counterpart yet."""
-    raise NotImplementedError(
-        "compressed_psum is not ported yet: it waits for the port's "
-        "torch.distributed layout (ROADMAP A11, launch/)")
+def compressed_psum(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """int8-payload all-reduce over ``axis_name`` (a ``launch.mesh``
+    layout axis, resolved against the active layout, or a process group):
+    quantize → max of the scales → payloads renormalized to that common
+    scale and rounded to int32 → sum of the int32 payloads → rescale, as
+    the reference's.  Per element the result is within 2·Σ_r scale_r of
+    the plain sum.  The summed payloads are int32, so the all-reduce moves
+    as many bytes as a float32 one (the max adds 4 bytes)."""
+    from ..launch import mesh
+    q, s = quantize_tensor(x)
+    s_max = mesh.max(s, axis_name)
+    # renormalize payloads to the common scale before the integer sum
+    q_common = torch.round(q.to(torch.float32) * (s / s_max)
+                           ).to(torch.int32)
+    total = mesh.all_reduce(q_common, axis_name)
+    return total.to(torch.float32) * s_max

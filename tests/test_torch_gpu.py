@@ -872,3 +872,31 @@ def test_kv_spec_on_the_card_equals_the_cpu():
             assert la.int8 == lb.int8
             np.testing.assert_allclose(la.k_amax, lb.k_amax, rtol=1e-5)
             np.testing.assert_allclose(la.v_amax, lb.v_amax, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_one_card_shard_the_forward(tmp_path):
+    """Reduced qwen2 over two gloo ranks on ``cuda:0`` (one process each,
+    ``launch/ranks.py``): the sharded forward within 1e-4 of the logit
+    scale of the whole model on the same card, the same logits on both
+    ranks, ``flash_attention`` launched once per layer by each rank, and
+    the sharded engine's greedy streams equal the whole engine's."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from repro_torch.launch.ranks import run_ranks
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    ranks = run_ranks(2, dict(
+        layout=[1, 2], device="cuda", arch="qwen2-1.5b", reduced=True,
+        seed=0, branch_gain=64.0, tol=1e-4, exact=False, variants=["fp"],
+        tasks=["prefill", "serve"], pg_timeout=60.0), tmp_path,
+        timeout_s=180)
+    for res in ranks:
+        assert res["backend"] == "gloo" and res["device"].startswith("cuda")
+        pre = res["prefill"]
+        assert pre["max_abs_err"] <= 1e-4 * pre["logit_scale"]
+        assert pre["flash_launches"] == cfg.n_layers
+        run = res["serve"]["fp"]
+        assert 2 * run["pool_bytes"] == run["whole_pool_bytes"]
+    assert ranks[0]["prefill"]["digest"] == ranks[1]["prefill"]["digest"]
+    assert ranks[0]["serve"]["fp"]["streams"] == \
+        ranks[1]["serve"]["fp"]["streams"]

@@ -1,9 +1,10 @@
 """The port stands alone: ``repro_torch`` (and ``chip_smoke.py``) import
 neither ``jax`` nor the JAX package ``repro``, proven in a fresh process
 that runs the port's QNN main path (affine domain, dataflow steps), the
-fuzzer, one reduced LM prefill, three QAT steps with their export and a
-serving engine answering two requests (SIRA-int8 cache), and by a scan of
-the sources."""
+fuzzer, one reduced LM prefill, three QAT steps with their export, a
+serving engine answering two requests (SIRA-int8 cache), a dry-run cell
+and ``compressed_psum`` over a one-rank layout, and by a scan of the
+sources."""
 import pathlib
 import re
 import subprocess
@@ -56,6 +57,16 @@ outs = eng.generate([Request(prompt=np.arange(5), max_new_tokens=3),
                      Request(prompt=np.arange(7), max_new_tokens=2,
                              temperature=1.0)])
 assert [len(o) for o in outs] == [3, 2] and eng.kv_spec.n_int8 == 2
+import repro_torch.launch.mesh, repro_torch.launch.shardings
+import repro_torch.launch.dryrun, repro_torch.launch.ranks
+import repro_torch.roofline, repro_torch.roofline.report
+from repro_torch.launch.dryrun import run_cell
+cell = run_cell("qwen2-1.5b", "decode_32k")
+assert cell.ok and cell.roofline["bottleneck"] == "memory"
+from repro_torch.launch.mesh import make_layout, use_layout
+from repro_torch.train import compressed_psum
+with use_layout(make_layout((1, 1))):
+    assert compressed_psum(torch.ones(3), "model").shape == (3,)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED=" + ",".join(bad))

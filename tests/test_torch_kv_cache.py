@@ -505,14 +505,17 @@ def test_config_validation_matches_reference(kw, match):
 
 
 def test_config_mesh_waits_for_launch():
-    """A deliberate difference: the reference takes a jax Mesh (and
-    raises ValueError for anything else); the port has no mesh before
-    ROADMAP A11 and refuses any value."""
-    with pytest.raises(ValueError, match="mesh"):
-        JServingConfig(batch_slots=1, max_seq=16, mesh="tpu")
+    """The reference takes a jax Mesh, the port a ``launch.mesh.Layout``;
+    both raise ValueError naming ``mesh`` for anything else."""
+    from repro_torch.launch.mesh import make_layout
     for mesh in ("tpu", object()):
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(ValueError, match="mesh"):
+            JServingConfig(batch_slots=1, max_seq=16, mesh=mesh)
+        with pytest.raises(ValueError, match="mesh"):
             ServingConfig(batch_slots=1, max_seq=16, mesh=mesh)
+    layout = make_layout((1, 1))
+    assert ServingConfig(batch_slots=1, max_seq=16,
+                         mesh=layout).mesh is layout
     sc = ServingConfig(batch_slots=2, max_seq=32)
     assert sc.replace(prefix_cache=True).prefix_cache
     with pytest.raises(ValueError, match="page_size"):

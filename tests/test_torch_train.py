@@ -216,9 +216,19 @@ def test_error_feedback_three_steps_match_reference():
                                        rtol=0, atol=1e-7)
 
 
-def test_compressed_psum_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A11"):
-        compressed_psum(torch.zeros(4), "pod")
+def test_compressed_psum_over_a_one_rank_axis():
+    """Over an axis of one rank the int8 all-reduce is the reference's
+    quantize → dequantize of ``compress_grads``; an axis with no layout
+    raises.  (Two ranks: ``tests/test_torch_tp.py``.)"""
+    from repro_torch.launch.mesh import make_layout, use_layout
+    g = np.random.default_rng(3).normal(size=(257,)).astype(np.float32)
+    q, s = j_comp.quantize_tensor(jnp.asarray(g))
+    want = np.asarray(j_comp.dequantize_tensor(q, s))
+    with use_layout(make_layout((1, 1, 1), ("pod", "data", "model"))):
+        got = compressed_psum(torch.from_numpy(g), "pod")
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(RuntimeError, match="no layout"):
+        compressed_psum(torch.from_numpy(g), "pod")
 
 
 # ------------------------------------------------ the LM step (reduced)
