@@ -264,7 +264,8 @@ from repro_torch.configs import ShapeCell                   # noqa: E402
 from repro_torch.launch import dryrun as lm_dryrun           # noqa: E402
 from repro_torch.launch import train as lm_trainer      # noqa: E402
 from repro_torch.launch.mesh import make_layout              # noqa: E402
-from repro_torch.launch.ranks import Procs, run_ranks        # noqa: E402
+from repro_torch.launch.ranks import (Procs, run_ranks,      # noqa: E402
+                                      start_oracle)
 from repro_torch.models import attention as lm_attention     # noqa: E402
 from repro_torch.models import moe as lm_moe                 # noqa: E402
 from repro_torch.models.convert import ParamTree             # noqa: E402
@@ -3370,6 +3371,187 @@ def launch_ranks() -> dict:
                 rank_seconds=[res["seconds"] for res in ranks])
 
 
+# (e)-(h): training split over the two ranks, fake-quant, MoE expert
+# parallelism, Mamba2/Zamba2 by head and static serving under the layout;
+# the whole-model oracle of each runs first, in a process of its own
+# lm_train's 1024 tokens of the gradient check as 2 x 512: under (2, 1)
+# each data rank takes one row (a row cannot be split over two ranks).
+# Cut to 4 of 28 layers: at full depth the oracle's float32 gradient and
+# masters are 12.9 GB and the two ranks' (2, 1) step, a float32 copy of
+# the model each, 19 s of gloo staging (one H100 80GB HBM3, 700 W)
+LAUNCH_TRAIN_F32 = dict(arch=LM_ARCH, dtype="float32", seed=LM_SEED,
+                        layers=4, batch=[2, 512], steps=1, microbatches=[1],
+                        layouts=[[1, 2], [2, 1]], lr=1e-5, warmup=1,
+                        tol_loss=1e-5, tol_grad=LM_GRAD_TOL,
+                        tol_master=1e-6)
+# the loss of one fake-quant step (QuantSpec(bits=8)), same inputs
+LAUNCH_TRAIN_QUANT = dict(LAUNCH_TRAIN_F32, quant_bits=8, tol_grad=None,
+                          tol_master=None)
+# bf16 (published dtype), timed: lm_train's batch, 10 steps, no oracle
+LAUNCH_TRAIN_TIMED = dict(arch=LM_ARCH, seed=LM_SEED,
+                          batch=[LM_TRAIN["batch"], LM_TRAIN["seq"]],
+                          microbatches=[LM_TRAIN["microbatches"]],
+                          layouts=[[1, 2]], steps=10, warm=3, lr=3e-3,
+                          warmup=5, oracle=False, remat=False)
+LAUNCH_FAMILY_TOL = 1e-4     # of the logit scale: lm_families' bar
+LAUNCH_MOE = dict(archs=["granite-moe-3b-a800m", "qwen2-moe-a2.7b"],
+                  layers=dict(FAMILY_F32_LAYERS), dtype="float32",
+                  seed=LM_SEED, shape=[1, 512], decode=8, layout=[1, 2],
+                  tol=LAUNCH_FAMILY_TOL, tie=ROUTING_TIE)
+LAUNCH_SSM = dict(LAUNCH_MOE, archs=["mamba2-780m", "zamba2-2.7b"])
+# serve's static mamba2 (12 of 48 layers, 4 requests, 32 new tokens) with
+# prompts of 128, not 512: static mode prefills token by token, and 544
+# split steps took 36 s (one H100 80GB HBM3, 700 W)
+LAUNCH_STATIC = dict(archs=[SERVE_STATIC[0]], layers=SERVE_STATIC[4],
+                     dtype="float32", seed=LM_SEED, layout=[1, 2],
+                     requests=[[128, SERVE_STATIC[3]]] * SERVE_STATIC[1],
+                     max_seq=128 + SERVE_STATIC[3],
+                     exact=False, tie=STREAM_TIE)
+SPLIT_TASKS = ["train", "train_quant", "moe_prefill", "ssm_prefill",
+               "static_serve", "train_timed"]
+SPLIT_ARGS = dict(layout=[1, 2], pg_timeout=300.0, tasks=SPLIT_TASKS,
+                  train=LAUNCH_TRAIN_F32, train_quant=LAUNCH_TRAIN_QUANT,
+                  moe_prefill=LAUNCH_MOE, ssm_prefill=LAUNCH_SSM,
+                  static_serve=LAUNCH_STATIC, train_timed=LAUNCH_TRAIN_TIMED)
+
+
+def split_args() -> dict:
+    """The arguments of (e)-(h)'s oracle and ranks."""
+    # two ranks, each with a float32 copy of the model under (2, 1), share
+    # the card: segments that grow keep the caching allocator from
+    # stranding memory between the steps' differently sized blocks
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    return dict(SPLIT_ARGS, device=DEV.type)
+
+
+def launch_split(work: pathlib.Path, oracle: Procs) -> dict:
+    """(e)-(h) on two ranks (gloo, both on ``cuda:0``), against the
+    whole model's results, which one process computes first and the
+    ranks read.  (e) qwen2-1.5b's
+    float32 step (4 of 28 layers) under (1, 2) and (2, 1) with ZeRO: each
+    leaf's gradient within ``LM_GRAD_TOL`` of its max |g|, the masters
+    after the update within 1e-6 of the largest master, the loss within
+    1e-5 (2 x 512: (2, 1) gives each data rank a row); then bf16 training under (1, 2), timed (``LAUNCH_TRAIN_TIMED``):
+    the loss falls, and every rank's backward runs on the tensor cores.
+    (f) one fake-quant step's loss under both layouts.  (g), (h) the
+    float32 prefill (1 x 512) and eight decode steps of the MoE, Mamba2
+    and Zamba2 configs under model = 2, and mamba2's static serving.
+    ``oracle``: the process computing the whole models' results into
+    ``work`` (``start_oracle`` of ``split_args()``), started beside
+    (a)-(c) and waited for here, before the ranks start."""
+    t0 = time.perf_counter()
+    oracle.wait(600)
+    oracle_wait_s = time.perf_counter() - t0
+    oracle_s = json.loads((work / "oracle" / "oracle.json").read_text()
+                          )["seconds"]
+    path = work / "oracle" / "oracle.pt"
+    oracle_bytes = path.stat().st_size
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, dict(split_args(), oracles=[str(path)]),
+                      work / "ranks", timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    cfg = get_config(LM_ARCH)
+    # each task's cases (its "seconds_task" aside)
+    ranks = [{k: {c: r for c, r in v.items() if isinstance(r, dict)}
+              if k in SPLIT_TASKS else v for k, v in res.items()}
+             for res in ranks]
+    a, b = ranks
+    for key in ("train", "train_quant", "train_timed"):
+        for case in a[key]:
+            check(a[key][case]["digest"] == b[key][case]["digest"],
+                  f"{key} {case}: the ranks' losses differ")
+    for r, res in enumerate(ranks):
+        for key in ("train", "train_quant"):
+            for case, run in res[key].items():
+                cmp, = run["vs"]
+                check(cmp["loss_rel_err"] <= 1e-5,
+                      f"rank {r} {key} {case}: loss {cmp}")
+                if key == "train":
+                    check(cmp["grad_err"] <= LM_GRAD_TOL and
+                          cmp["master_err"] <= 1e-6,
+                          f"rank {r} {case}: {cmp}")
+        timed, = res["train_timed"].values()
+        mb = LAUNCH_TRAIN_TIMED["microbatches"][0]
+        want = {f"flash_attention_bwd_{k}:{TENSOR_CORES}":
+                cfg.n_layers * mb for k in ("dkdv", "dq")}
+        got = {k: timed["launches"].get(k, 0) for k in
+               list(want) + [f"flash_attention_bwd_{k}:cuda_cores"
+                             for k in ("dkdv", "dq")]}
+        check(all(got[k] == n for k, n in want.items()) and
+              sum(got.values()) == sum(want.values()),
+              f"rank {r}: backward launches per step {got}, not "
+              f"{cfg.n_layers} x {mb} of dK/dV and dQ on tensor_cores")
+        losses = timed["losses"]
+        check(all(math.isfinite(x) for x in losses) and
+              statistics.mean(losses[-3:]) < statistics.mean(losses[:3]),
+              f"rank {r}: the bf16 loss did not fall: {losses}")
+        for key in ("moe_prefill", "ssm_prefill"):
+            for arch, run in res[key].items():
+                cmp, = run["vs"]
+                for part, c in cmp.items():
+                    check(c["max_abs_err"] <= LAUNCH_FAMILY_TOL *
+                          c["logit_scale"], f"rank {r} {arch} {part}: {c}")
+                fcfg = get_config(arch)
+                n_attn = fcfg.n_layers // fcfg.attn_every \
+                    if fcfg.family == "hybrid" else \
+                    (0 if fcfg.family == "ssm" else
+                     LAUNCH_MOE["layers"].get(arch, fcfg.n_layers))
+                check(run["flash_launches"] == n_attn,
+                      f"rank {r} {arch}: {run['flash_launches']} "
+                      f"flash_attention launches per forward, not {n_attn}")
+        st = res["static_serve"][SERVE_STATIC[0]]
+        check(sum(st["distinct_tokens"]) > len(st["streams"]),
+              f"rank {r}: every static stream repeats one token")
+    for key in ("moe_prefill", "ssm_prefill"):
+        for arch in a[key]:
+            check(a[key][arch]["digest"] == b[key][arch]["digest"],
+                  f"{arch}: the ranks' logits differ")
+    check(a["static_serve"][SERVE_STATIC[0]]["streams"] ==
+          b["static_serve"][SERVE_STATIC[0]]["streams"],
+          "the ranks' static streams differ")
+
+    def train_row(run):
+        cmp = run["vs"][0] if run["vs"] else {}
+        return dict({k: run.get(k) for k in (
+            "layout", "microbatches", "losses", "gnorms", "median_step_s",
+            "tokens_per_s", "peak_bytes", "collectives", "launches")},
+            **cmp)
+    timed = {f"rank{r}": train_row(next(iter(res["train_timed"].values())))
+             for r, res in enumerate(ranks)}
+    # every rank's launches: the prefills' forwards, and the first step
+    # of each training case (its forward and backward kernels)
+    launches = {"flash_attention": sum(
+        res[key][arch]["flash_launches"] for res in ranks
+        for key in ("moe_prefill", "ssm_prefill") for arch in res[key])}
+    for res in ranks:
+        for key in ("train", "train_quant", "train_timed"):
+            for run in res[key].values():
+                for k, n in run["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+    return dict(
+        oracle_s=oracle_s, oracle_wait_s=oracle_wait_s,
+        oracle_bytes=oracle_bytes, ranks_s=ranks_s,
+        train_f32={case: train_row(run) for case, run in a["train"].items()},
+        train_f32_rank1={case: run["vs"][0] for case, run in
+                         b["train"].items()},
+        train_quant={case: train_row(run)
+                     for case, run in a["train_quant"].items()},
+        train_bf16=dict(timed, batch=LAUNCH_TRAIN_TIMED["batch"],
+                        steps=LAUNCH_TRAIN_TIMED["steps"],
+                        warm=LAUNCH_TRAIN_TIMED["warm"],
+                        remat=LAUNCH_TRAIN_TIMED["remat"]),
+        families={arch: dict({k: run[k] for k in (
+            "flash_launches", "seconds", "collectives", "param_bytes",
+            "whole_param_bytes", "cache_bytes")}, **run["vs"][0])
+            for key in ("moe_prefill", "ssm_prefill")
+            for arch, run in a[key].items()},
+        static={k: v for k, v in a["static_serve"][SERVE_STATIC[0]].items()
+                if k not in ("streams",)},
+        launches=launches,
+        rank_seconds=[res["seconds"] for res in ranks])
+
+
 def launch_roofline(train: dict) -> dict:
     """(d) ``dryrun``'s prediction at layout (1, 1) against measurement:
     the bf16 1 x 32768 prefill through the dry run's CLI with
@@ -3414,23 +3596,47 @@ def phase_launch(card: str, train: dict) -> dict:
     # counts to 0 just before this path, read just after; the ranks count
     # their own launches and hand them back
     _build.reset_launch_counts()
-    ranks = launch_ranks()
+    parts_s = {}
+    # (e)-(h)'s whole-model oracle runs in its own process beside (a)-(c);
+    # its file (the float32 gradient and masters) goes to the checkout's
+    # git-ignored build directory, not to TMPDIR
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        work = pathlib.Path(tmp)
+        oracle = start_oracle(split_args(), work / "oracle")
+        try:
+            t0 = time.perf_counter()
+            ranks = launch_ranks()
+            parts_s["a-c"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            split = launch_split(work, oracle)
+            parts_s["e-h"] = time.perf_counter() - t0
+        finally:
+            oracle.stop()
     t0 = time.perf_counter()
     roof = launch_roofline(train)
-    roof["seconds"] = time.perf_counter() - t0
-    launches = _build.LAUNCH_COUNTS["flash_attention"] + ranks["launches"]
+    roof["seconds"] = parts_s["d"] = time.perf_counter() - t0
+    launches = dict(split["launches"])
+    launches["flash_attention"] += _build.LAUNCH_COUNTS["flash_attention"] \
+        + ranks["launches"]
     return dict(phase="launch", arch=LM_ARCH, card=card, layout="1x2",
                 transport="gloo, both ranks on cuda:0: all_reduce and the "
                           "list form of all_gather staged through the host",
-                ranks=ranks, roofline=roof,
+                ranks=ranks, split=split, roofline=roof, parts_s=parts_s,
                 seconds=time.perf_counter() - t_phase,
                 note="(a) float32 1 x 1024, the sharded forward against the "
                      "whole model in each rank; (b) float32 serving, "
                      "streams vs the whole engine with the near-tie rule; "
                      "(c) compressed_psum: the summed payloads are int32, "
                      "as in the reference, so they move as many bytes as "
-                     "float32; (d) mfu: model FLOPs / (measured s x 989e12)",
-                launches=dict(flash_attention=launches))
+                     "float32; (d) mfu: model FLOPs / (measured s x 989e12); "
+                     "(e) training split: tensor (1, 2), data + ZeRO (2, 1), "
+                     "float32 against the whole model's step, bf16 timed; "
+                     "(f) fake-quant; (g) MoE expert parallel; (h) Mamba2 "
+                     "and Zamba2 by head (in_proj split by head where the "
+                     "reference's spec splits its packed columns evenly) "
+                     "and mamba2's static serving under the layout",
+                launches=launches)
 
 
 # --------------------------------------------------------------------------
@@ -3523,7 +3729,8 @@ def main() -> None:
                  "attention with jax.vjp; dK/dV and dQ per route "
                  "(tensor_cores: bf16/f16, hd <= 128; cuda_cores: float32 "
                  "and hd > 128, forced here at bf16 to time it)",
-            launches=train["launches"][name],
+            launches=train["launches"][name]
+            + launch["launches"].get(name, 0),
             launches_by_path={k: ph["launches"].get(name, 0)
                               for k, ph in phases.items()},
             max_abs_err=train["grid"]["max_abs_err"][name], ms=t["ms"],

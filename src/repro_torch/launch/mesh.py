@@ -10,12 +10,17 @@ parallelism whose gradient all-reduce leaves the node).
 
 A :class:`Layout` holds the axis sizes, this process's rank and, once it
 is bound to an initialised process group, one ``torch.distributed``
-group per axis.  Its collectives (``all_reduce``, ``all_gather``, ``max``
-and nothing else: gloo has no ``reduce_scatter`` and no
-``all_gather_into_tensor`` for CUDA tensors) count themselves: op,
-operand bytes and ring-model wire bytes, the rule of the reference's
-``roofline/analysis.py parse_collectives`` (all-reduce 2(g-1)/g of the
-operand, all-gather (g-1)/g).  Those counts fill
+group per axis.  Its collectives (``all_reduce``, ``all_gather``, ``max``,
+and ``reduce_scatter`` as an ``all_reduce`` and a slice: gloo has no
+``reduce_scatter`` and no ``all_gather_into_tensor`` for CUDA tensors)
+count themselves: op, operand bytes and ring-model wire bytes, the rule
+of the reference's ``roofline/analysis.py parse_collectives`` (all-reduce
+2(g-1)/g of the operand, all-gather (g-1)/g; the emulated reduce-scatter
+moves what its all-reduce moves).  ``all_reduce``, ``copy`` and
+``all_gather`` carry gradients as Megatron's conjugate pair does (sum
+forward and identity backward; identity forward and sum backward; the
+gather's backward takes the rank's slice), and count their backward
+collectives like the forward ones; ``max`` carries none.  Those counts fill
 :class:`~repro_torch.roofline.analysis.CollectiveStats`, where the
 reference parses XLA's HLO, with the operand bytes of collectives whose
 group spans more than one 8-GPU node kept apart
@@ -54,6 +59,8 @@ POD_AXES = ("pod", "data", "model")
 #: what a collective's ``axis`` may be: a layout axis name, or a process
 #: group of the caller's own
 Axis = Union[str, Any]
+#: an axis name or a tuple of them (a collective over each in turn)
+Axes = Union[str, Tuple[str, ...]]
 
 
 @dataclasses.dataclass
@@ -74,7 +81,8 @@ class CollectiveCounter:
                axis: Optional[str] = None, internode: bool = False
                ) -> None:
         g = group_size if group_size > 2 else 2
-        wire = int((2 if op == "all-reduce" else 1) * (g - 1) / g * nbytes)
+        twice = op in ("all-reduce", "reduce-scatter")
+        wire = int((2 if twice else 1) * (g - 1) / g * nbytes)
         self.counts[op] = self.counts.get(op, 0) + 1
         self.operand_bytes[op] = self.operand_bytes.get(op, 0) + nbytes
         self.wire_bytes[op] = self.wire_bytes.get(op, 0) + wire
@@ -173,20 +181,53 @@ class Layout:
                 f"group (make_layout after init_ranks) to communicate")
         return self.groups[axis]
 
-    def all_reduce(self, x: torch.Tensor, axis: str = "model"
+    def all_reduce(self, x: torch.Tensor, axis: Axes = "model"
                    ) -> torch.Tensor:
-        """Sum of ``x`` over ``axis``, every rank the same bits."""
-        return _collective("all-reduce", x, axis, self)
+        """Sum of ``x`` over ``axis`` (a name or a tuple of names), every
+        rank the same bits.  Differentiable as Megatron's *reduce from
+        the model region*: the backward is the identity, which is right
+        where every rank goes on with the sum alike (the residual
+        stream after ``wo`` or ``w_down``)."""
+        if self.size(axis) > 1 and _differentiable(x):
+            return _Reduce.apply(x, self, _names(axis))
+        return _over(self, "all-reduce", x, axis)
 
-    def max(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
-        """Elementwise max of ``x`` over ``axis``."""
-        return _collective("max", x, axis, self)
+    def copy(self, x: torch.Tensor, axis: Axes = "model") -> torch.Tensor:
+        """Megatron's *copy to the model region*: ``x`` itself, whose
+        gradient is summed over ``axis`` in the backward.  It goes where a
+        replicated tensor enters work split over the axis (before every
+        column-split product): each rank's gradient is then a part of the
+        whole one."""
+        if self.size(axis) > 1 and _differentiable(x):
+            return _Copy.apply(x, self, _names(axis))
+        return x
+
+    def max(self, x: torch.Tensor, axis: Axes = "model") -> torch.Tensor:
+        """Elementwise max of ``x`` over ``axis``; no gradient (every
+        scale is computed from detached values, as in the reference)."""
+        return _over(self, "max", x, axis)
 
     def all_gather(self, x: torch.Tensor, axis: str = "model",
                    dim: int = -1) -> torch.Tensor:
         """The ranks' ``x`` along ``axis``, joined on ``dim`` in rank
-        order."""
+        order.  Differentiable: the backward takes this rank's slice."""
+        if self.size(axis) > 1 and _differentiable(x):
+            return _Gather.apply(x, self, axis, dim)
         return _collective("all-gather", x, axis, self, dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str = "data",
+                       dim: int = 0) -> torch.Tensor:
+        """This rank's block along ``dim`` of the sum of ``x`` over
+        ``axis`` (ZeRO's gradient reduction).  gloo has no reduce-scatter
+        for CUDA tensors: an ``all_reduce`` and a slice, counted as a
+        "reduce-scatter" that moves what the all-reduce moved."""
+        g = self.size(axis)
+        if g == 1:
+            return x
+        out = _collective("all-reduce", x, axis, self, op_name=(
+            "reduce-scatter"))
+        step = out.shape[dim] // g           # a copy: the sum is freed
+        return out.narrow(dim, self.index(axis) * step, step).clone()
 
 
 # ------------------------------------------------------------- making
@@ -361,8 +402,8 @@ def _resolve(axis: Axis, layout: Optional[Layout]):
 
 
 def _collective(op: str, x: torch.Tensor, axis: Axis,
-                layout: Optional[Layout] = None, dim: int = -1
-                ) -> torch.Tensor:
+                layout: Optional[Layout] = None, dim: int = -1,
+                op_name: Optional[str] = None) -> torch.Tensor:
     group, g, counter, name, internode = _resolve(axis, layout)
     if group is None:
         return x
@@ -373,11 +414,68 @@ def _collective(op: str, x: torch.Tensor, axis: Axis,
         dist.all_gather(parts, x, group=group)
         counter.record("all-gather", nbytes, g, name, internode)
         return torch.cat(parts, dim=dim)
-    out = x.contiguous().clone()
+    out = (x.detach() if op == "max" else x).contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
                     else dist.ReduceOp.SUM, group=group)
-    counter.record("all-reduce", nbytes, g, name, internode)
+    counter.record(op_name or "all-reduce", nbytes, g, name, internode)
     return out
+
+
+def _names(axis: Axes) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _over(layout: Layout, op: str, x: torch.Tensor, axis: Axes
+          ) -> torch.Tensor:
+    """``op`` ("all-reduce" or "max") over each named axis in turn."""
+    for a in _names(axis):
+        x = _collective(op, x, a, layout)
+    return x
+
+
+def _differentiable(x) -> bool:
+    return isinstance(x, torch.Tensor) and torch.is_grad_enabled() and \
+        x.requires_grad
+
+
+class _Reduce(torch.autograd.Function):
+    """Sum over the axes forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, layout, axes):
+        return _over(layout, "all-reduce", x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward, sum over the axes backward."""
+
+    @staticmethod
+    def forward(ctx, x, layout, axes):
+        ctx.layout, ctx.axes = layout, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _over(ctx.layout, "all-reduce", g, ctx.axes), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather on ``dim`` forward, this rank's slice backward."""
+
+    @staticmethod
+    def forward(ctx, x, layout, axis, dim):
+        ctx.rank, ctx.width = layout.index(axis), x.shape[dim]
+        ctx.dim = dim
+        return _collective("all-gather", x, axis, layout, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.width, ctx.width), None, \
+            None, None
 
 
 def all_reduce(x: torch.Tensor, axis: Axis = "model",

@@ -32,12 +32,35 @@ whole one, which every rank also builds from the same seed:
 * ``psum``         ``train/compression.py compressed_psum`` against the
                    plain ``all_reduce`` sum: error, bound, bytes counted.
 
+Tasks with an argument dict of their own (``args[task]``), each holding
+the split run to whole-model results (``oracle``): computed in one
+process before the ranks start (``run_oracle``/``start_oracle``, or
+``--oracle``: so that
+the whole model and the ranks' blocks never share a card) and read from
+the files ``args["oracles"]`` names, or computed in the rank:
+
+* ``train``, ``train_quant``, ``train_compress``, ``train_timed``  the
+                   train step of a model split over each layout of
+                   ``layouts`` (tensor, data and ZeRO parallelism,
+                   fake-quant with ``quant_bits``, int8 gradients with
+                   ``compress``): losses, the first step's gradient and
+                   the masters after the last step against the whole
+                   model's; ms per step, tokens/s, peak memory, the
+                   collectives and the kernel launches of one step;
+* ``moe_prefill``, ``ssm_prefill``  the prefill and ``decode`` decode
+                   steps of each arch of ``archs`` split over ``layout``
+                   (MoE expert parallel, Mamba2 by head), with MoE's
+                   near-tie routing rule;
+* ``static_serve`` the static engine under ``layout`` against the whole
+                   engine's streams, with the near-tie rule.
+
 Every rank must end with the same logits and streams: each returns a
 digest of them, and the caller compares them across ranks.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -143,6 +166,35 @@ def run_ranks(world: int, args: Dict[str, Any], workdir, *,
         procs.stop()
     return [json.loads((work / f"rank{r}.json").read_text())
             for r in range(world)]
+
+
+def start_oracle(args: Dict[str, Any], workdir) -> Procs:
+    """Start computing the whole-model results of ``args``' oracle tasks
+    (:func:`oracle`) in a process of its own, to be waited for before
+    their ranks start (so that the whole model and the ranks' blocks
+    never share the card); they are saved to ``<workdir>/oracle.pt``,
+    which ``args["oracles"]`` then names."""
+    work = pathlib.Path(workdir)
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "args.json").write_text(json.dumps(args))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+    return Procs({"oracle": [sys.executable, "-m",
+                             "repro_torch.launch.ranks", "--oracle",
+                             "--workdir", str(work)]}, work, env=env)
+
+
+def run_oracle(args: Dict[str, Any], workdir, *,
+               timeout_s: float = 600.0) -> pathlib.Path:
+    """:func:`start_oracle` and wait for it; the file of the results."""
+    procs = start_oracle(args, workdir)
+    try:
+        procs.wait(timeout_s)
+    finally:
+        procs.stop()
+    return pathlib.Path(workdir) / "oracle.pt"
 
 
 # ---------------------------------------------------------------- tasks
@@ -398,20 +450,580 @@ def task_psum(layout, args, device):
                 plain=dataclasses.asdict(plain), digest=digest(got))
 
 
+# ------------------------------------- training, families, static serving
+#
+# Each of these tasks has an argument dict of its own (``args[task]``)
+# and compares the split run with whole-model results (``oracle``): read
+# from the files ``args["oracles"]`` names (each compared, each with the
+# task's bars; the whole model then never shares a card with the ranks),
+# and computed in the rank itself when there are none, or when
+# ``args["oracle_in_rank"]``.
+
+ORACLE_TASKS = ("train", "train_quant", "train_compress", "train_timed",
+                "moe_prefill", "ssm_prefill", "static_serve")
+
+
+def _cfg(spec: Dict[str, Any], arch: Optional[str] = None):
+    """A task's config: ``arch``, ``reduced``, ``dtype``, ``layers`` (a
+    depth cut: an int, or {arch: int}) and ``n_experts`` (a MoE config's
+    expert count replaced)."""
+    from ..configs import get_config
+    arch = arch or spec["arch"]
+    cfg = get_config(arch, reduced=spec.get("reduced", False))
+    if spec.get("dtype"):
+        cfg = dataclasses.replace(cfg, dtype=getattr(torch, spec["dtype"]))
+    layers = spec.get("layers")
+    if isinstance(layers, dict):
+        layers = layers.get(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=int(layers))
+    if spec.get("n_experts"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=int(spec["n_experts"])))
+    return cfg
+
+
+def _whole(spec: Dict[str, Any], device, arch: Optional[str] = None):
+    """The whole model of a task: ``params`` (a file of the port's param
+    tree, e.g. the reference's weights carried across), or drawn from
+    ``seed`` on ``device``'s generator (every process draws the same)."""
+    from ..models import get_model
+    from ..models.convert import ParamTree
+    arch = arch or spec["arch"]
+    cfg = _cfg(spec, arch)
+    model = get_model(cfg, device=device)
+    params = spec.get("params")
+    if isinstance(params, dict):
+        params = params.get(arch)
+    if params:
+        model.params = ParamTree(torch.load(params, map_location=device))
+    else:
+        model.init(torch.Generator(device=device).manual_seed(
+            spec.get("seed", 0)))
+    return model
+
+
+def train_batches(spec: Dict[str, Any], vocab: int) -> List[Dict[str, Any]]:
+    """``steps`` global batches (B, S) of seeded tokens and their next
+    tokens, numpy int64 (what the tests hand the reference too)."""
+    B, S = spec["batch"]
+    toks = np.random.default_rng(spec.get("seed", 0) + 100).integers(
+        0, vocab, size=(spec.get("steps", 1), B, S + 1))
+    return [dict(tokens=t[:, :-1], labels=t[:, 1:]) for t in toks]
+
+
+def train_optimizer(spec: Dict[str, Any]):
+    from ..optim import AdamW
+    return AdamW(lr=spec.get("lr", 3e-3),
+                 warmup_steps=spec.get("warmup", 2),
+                 total_steps=spec.get("total", 50),
+                 clip_norm=spec.get("clip_norm", 1.0))
+
+
+def _quant(spec):
+    from ..quant.quantizer import QuantSpec
+    return QuantSpec(bits=spec["quant_bits"]) if spec.get("quant_bits") \
+        else None
+
+
+def _leaf_max(tree) -> Any:
+    from ..tree import tree_map
+    return tree_map(lambda t: t.detach().abs().max().to(torch.float32)
+                    .cpu() if t.numel() else torch.zeros(()), tree)
+
+
+def _cpu(tree) -> Any:
+    from ..tree import tree_map
+    return tree_map(lambda t: t.detach().to(torch.float32).cpu(), tree)
+
+
+def oracle_train(spec: Dict[str, Any], device) -> Dict[str, Any]:
+    """The whole model's run of a train task (``compress``: int8
+    gradients with error feedback), per microbatch count: the
+    losses and gradient norms of every step, and, where the task has a
+    bar for them, the first step's gradient (and each leaf's max |g|)
+    and the masters after the last step (and each leaf's max)."""
+    from ..train import init_train_state, make_train_step
+    out = {}
+    for mb in spec.get("microbatches", [1]):
+        model = _whole(spec, device)
+        opt = train_optimizer(spec)
+        state = init_train_state(model, opt, 0,
+                                 compress=spec.get("compress", False),
+                                 params=model.param_tree())
+        step = make_train_step(model, opt, microbatches=mb,
+                               quant=_quant(spec),
+                               remat=spec.get("remat", False),
+                               compress=spec.get("compress", False),
+                               return_grads=True)
+        losses, gnorms, res = [], [], {}
+        for i, batch in enumerate(train_batches(spec, model.cfg.vocab)):
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            if i == 0 and spec.get("tol_grad"):
+                res["grads"] = _cpu(met["grads"])
+                res["gmax"] = _leaf_max(res["grads"])
+            del met
+        if spec.get("tol_master"):
+            res["masters"] = _cpu(state.opt.master)
+            res["mmax"] = _leaf_max(res["masters"])
+        out[f"mb{mb}"] = dict(losses=losses, gnorms=gnorms, **res)
+        del model, state, step
+        _free(device)
+    return out
+
+
+def _free(device) -> None:
+    import gc
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _errs(got_tree, want_tree, scale_tree, device) -> List[float]:
+    """Per leaf: max|got - want| / the whole leaf's scale (a 0-d tensor
+    per leaf); an empty block counts 0."""
+    from ..tree import leaves
+    out = []
+    for g, w, sc in zip(leaves(got_tree), leaves(want_tree),
+                        leaves(scale_tree)):
+        err = float((g.to(torch.float32) - w.to(device, torch.float32))
+                    .abs().max()) if g.numel() else 0.0
+        out.append(err / max(float(sc), 1e-30))
+    return out
+
+
+def _rank_block(tree, model, layout) -> Any:
+    """A whole tree like the params → this rank's blocks, as its
+    optimizer state holds them."""
+    from ..train.train_step import zero_slices
+    from .shardings import shard_params
+    if layout.size("model") > 1:
+        tree = shard_params(tree, layout, model.cfg)
+    return zero_slices(tree, model)
+
+
+def task_train(key: str, args, device, oracles) -> Dict[str, Any]:
+    """``args[key]``: the split train step on each layout of ``layouts``
+    and each microbatch count, against every oracle: losses (relative
+    ``tol_loss``), the first step's gradient (each leaf within
+    ``tol_grad`` of its max |g|, when ``tol_grad``) and the masters after
+    the last step (``tol_master`` of the largest master, when given);
+    with
+    ``timed``, ms per step, tokens/s, the peak memory, the collectives and
+    the backward launches of one step, per rank."""
+    from ..kernels import _build
+    from ..train import init_train_state, make_train_step
+    from ..tree import leaves
+    from .mesh import make_layout
+    spec = args[key]
+    out = {}
+    for shape in spec["layouts"]:
+        layout = make_layout(shape)
+        for mb in spec.get("microbatches", [1]):
+            whole = _whole(spec, device)
+            model = whole.shard(layout)
+            del whole
+            _free(device)
+            opt = train_optimizer(spec)
+            state = init_train_state(model, opt, 0,
+                                     compress=spec.get("compress", False),
+                                     params=model.param_tree())
+            step = make_train_step(model, opt, microbatches=mb,
+                                   quant=_quant(spec),
+                                   remat=spec.get("remat", False),
+                                   compress=spec.get("compress", False),
+                                   return_grads=True)
+            batches = train_batches(spec, model.cfg.vocab)
+            res = dict(layout=list(shape), microbatches=mb, losses=[],
+                       gnorms=[], step_s=[])
+            cuda = torch.device(device).type == "cuda"
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            grads = None
+            for i, batch in enumerate(batches):
+                layout.stats.reset()
+                before = dict(_build.LAUNCH_COUNTS)
+                t0 = _clock(device)
+                state, met = step(state, batch)
+                res["step_s"].append(_clock(device) - t0)
+                res["losses"].append(float(met["loss"]))
+                res["gnorms"].append(float(met["grad_norm"]))
+                if i == 0:
+                    grads = met["grads"]
+                    res["collectives"] = dataclasses.asdict(
+                        layout.stats.stats())
+                    res["launches"] = {
+                        k: v - before.get(k, 0)
+                        for k, v in _build.LAUNCH_COUNTS.items()
+                        if k.startswith("flash_attention")
+                        and v != before.get(k, 0)}
+                del met
+            if cuda:
+                res["peak_bytes"] = torch.cuda.max_memory_allocated()
+            B, S = spec["batch"]
+            warm = min(spec.get("warm", 1), len(res["step_s"]) - 1)
+            step_s = sorted(res["step_s"][warm:])[
+                len(res["step_s"][warm:]) // 2]
+            res.update(median_step_s=step_s, tokens_per_s=B * S / step_s)
+            res["vs"] = []
+            for o in oracles:
+                if key not in o:
+                    continue
+                want = o[key][f"mb{mb}"]
+                loss_err = max(abs(a - b) / abs(b) for a, b in
+                               zip(res["losses"], want["losses"]))
+                cmp = dict(whole_losses=want["losses"],
+                           whole_gnorms=want.get("gnorms"),
+                           loss_rel_err=loss_err)
+                check(loss_err <= spec.get("tol_loss", 1e-5),
+                      f"{key} {shape} mb{mb}: losses {res['losses']} vs "
+                      f"{want['losses']}")
+                if spec.get("tol_grad"):
+                    cmp["grad_err"] = max(_errs(
+                        grads, _rank_block(want["grads"], model, layout),
+                        want["gmax"], device))
+                    check(cmp["grad_err"] <= spec["tol_grad"],
+                          f"{key} {shape} mb{mb}: gradient "
+                          f"{cmp['grad_err']} of the leaf's max")
+                if spec.get("tol_master"):
+                    # of each leaf's max (reported), and of the largest
+                    # master (the bar): AdamW's first steps map a gradient
+                    # near its eps to any step in [-lr, lr], so a leaf of
+                    # small weights can differ by more than its own scale
+                    # allows where the gradients agree to rounding
+                    per_leaf = _errs(
+                        state.opt.master,
+                        _rank_block(want["masters"], model, layout),
+                        want["mmax"], device)
+                    top = max(float(v) for v in leaves(want["mmax"]))
+                    cmp["master_leaf_err"] = max(per_leaf)
+                    cmp["master_err"] = max(
+                        e * float(v) / top for e, v in
+                        zip(per_leaf, leaves(want["mmax"])))
+                    check(cmp["master_err"] <= spec["tol_master"],
+                          f"{key} {shape} mb{mb}: masters "
+                          f"{cmp['master_err']} of the largest master")
+                res["vs"].append(cmp)
+            res["digest"] = digest(torch.tensor(res["losses"]))
+            out[f"{layout.name}_mb{mb}"] = res
+            del model, state, step, grads
+            _free(device)
+    return out
+
+
+def _prefill_tokens(cfg, spec) -> np.ndarray:
+    B, S = spec["shape"]
+    return np.random.default_rng(spec.get("seed", 0) + 1).integers(
+        0, cfg.vocab, size=(B, S))
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Record every MoE layer's routing, in call order: its expert ids
+    (sorted per token) and the top-(k+1) router probabilities."""
+    from ..models import moe
+    log, route = [], moe.route
+
+    def recorded(params, x, **kw):
+        r = route(params, x, **kw)
+        k = r.gate_idx.shape[-1]
+        log.append((r.gate_idx.sort(dim=-1).values.cpu(),
+                    r.probs.topk(k + 1, dim=-1).values.cpu()))
+        return r
+    moe.route = recorded
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def _by_layer(log, n_layers):
+    """One (B, S, .) entry per layer, or one (B, 1, .) per decode step
+    and layer → (ids, top) stacked (n_layers, B, S, .)."""
+    steps = len(log) // n_layers
+    return tuple(torch.stack([torch.cat([log[t * n_layers + i][j]
+                                         for t in range(steps)], dim=1)
+                              for i in range(n_layers)]) for j in (0, 1))
+
+
+def first_routing_flip(whole, split, tie: float) -> int:
+    """The first position whose routing differs between the whole run's
+    ``(ids, top)`` and the split run's in any layer (S when none).  Two
+    float32 runs that sum in other orders may swap the k-th and (k+1)-th
+    expert of a token whose probabilities tie to rounding; every such
+    difference must be a near-tie (margin < ``tie``), and positions from
+    the first one on are not compared (a swap changes that token's
+    output and, through attention, every later position's)."""
+    ids_a, top_a = whole
+    ids_b = split[0]
+    diff = (ids_a != ids_b).any(dim=-1)                # (layers, B, S)
+    if not bool(diff.any()):
+        return ids_a.shape[2]
+    margin = float((top_a[..., -2] - top_a[..., -1])[diff].max())
+    check(margin < tie, f"routing differs where the k-th and (k+1)-th "
+                        f"probabilities are {margin} apart: not a near-tie")
+    return int(diff.any(dim=0).any(dim=0).nonzero()[0])
+
+
+def _family_run(model, toks, n_decode, device, layout=None):
+    """float32 logits [..., :vocab] of a prefill of ``toks`` and of
+    ``n_decode`` decode steps over its first tokens, with the routing
+    of each (and the collectives of the prefill under ``layout``)."""
+    from ..kernels import _build
+    cfg, V = model.cfg, model.cfg.vocab
+    t = torch.as_tensor(toks, device=device)
+    with torch.inference_mode():
+        with routing_log() as log:
+            if layout is not None:
+                layout.stats.reset()
+            before = _build.LAUNCH_COUNTS["flash_attention"]
+            t0 = _clock(device)
+            logits = model(t)[..., :V].float()
+            seconds = _clock(device) - t0
+            launches = _build.LAUNCH_COUNTS["flash_attention"] - before
+        out = dict(logits=logits.cpu(), seconds=seconds,
+                   flash_launches=launches)
+        del logits
+        if layout is not None:
+            out["collectives"] = dataclasses.asdict(layout.stats.stats())
+        if cfg.family == "moe":
+            out["routing"] = _by_layer(log, cfg.n_layers)
+        if n_decode:
+            cache = model.init_cache(t.shape[0], n_decode)
+            steps = []
+            with routing_log() as dlog:
+                for i in range(n_decode):
+                    lg, cache = model.decode_step(t[:, i:i + 1], cache, i)
+                    steps.append(lg[..., :V].float().cpu())
+            out["decode"] = torch.cat(steps, dim=1)
+            if cfg.family == "moe":
+                out["decode_routing"] = _by_layer(dlog, cfg.n_layers)
+            out["cache_bytes"] = sum(
+                v.numel() * v.element_size() for v in _tensors(cache))
+    return out
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def oracle_families(key: str, args, device) -> Dict[str, Any]:
+    spec = args[key]
+    out = {}
+    for arch in spec["archs"]:
+        model = _whole(spec, device, arch)
+        toks = _prefill_tokens(model.cfg, spec)
+        out[arch] = _family_run(model, toks, spec.get("decode", 0), device)
+        del model
+        _free(device)
+    return out
+
+
+def task_families(key: str, args, device, oracles) -> Dict[str, Any]:
+    """``args[key]``: each arch of ``archs`` split over ``layout``: the
+    prefill's logits, and ``decode`` decode steps', within ``tol`` of the
+    whole model's logit scale (MoE: up to the first near-tie routing
+    swap, ``tie``); flash-attention launches per split forward, the
+    collectives, the weights and the cache this rank holds."""
+    from .mesh import make_layout
+    spec = args[key]
+    layout = make_layout(spec["layout"])
+    tol, tie = spec.get("tol", 1e-5), spec.get("tie", 1e-5)
+    out = {}
+    for arch in spec["archs"]:
+        whole = _whole(spec, device, arch)
+        whole_bytes = sum(t.numel() * t.element_size()
+                          for t in whole.params.parameters())
+        model = whole.shard(layout)
+        del whole
+        _free(device)
+        toks = _prefill_tokens(model.cfg, spec)
+        got = _family_run(model, toks, spec.get("decode", 0), device,
+                          layout)
+        res = dict(flash_launches=got["flash_launches"],
+                   seconds=got["seconds"], collectives=got["collectives"],
+                   param_bytes=sum(t.numel() * t.element_size()
+                                   for t in model.params.parameters()),
+                   whole_param_bytes=whole_bytes,
+                   cache_bytes=got.get("cache_bytes"), vs=[],
+                   digest=digest(got["logits"]))
+        for o in oracles:
+            want = o[key][arch]
+            cmp = {}
+            for part in ("logits",) + (("decode",) if spec.get("decode")
+                                       else ()):
+                n = want[part].shape[1]
+                route = "routing" if part == "logits" else "decode_routing"
+                if route in want:
+                    n = first_routing_flip(want[route], got[route], tie)
+                scale = float(want[part].abs().max())
+                err = float((got[part][:, :n] - want[part][:, :n])
+                            .abs().max()) if n else 0.0
+                check(err <= tol * scale, f"{key} {arch} {part}: {err} > "
+                                          f"{tol} * {scale}")
+                cmp[part] = dict(max_abs_err=err, logit_scale=scale,
+                                 positions=n, of=want[part].shape[1])
+            res["vs"].append(cmp)
+        out[arch] = res
+        del model, got
+        _free(device)
+    return out
+
+
+def _static_requests(cfg, spec):
+    from ..serve import Request
+    rng = np.random.default_rng(spec.get("seed", 0) + 3)
+    return [Request(prompt=rng.integers(0, cfg.vocab, size=(int(n),)),
+                    max_new_tokens=int(m), request_id=i)
+            for i, (n, m) in enumerate(spec["requests"])]
+
+
+def _static_engine(model, spec, layout=None):
+    from ..serve import ServingConfig, ServingEngine
+    return ServingEngine(model, ServingConfig(
+        batch_slots=spec.get("slots", len(spec["requests"])),
+        max_seq=spec["max_seq"], mode="static", mesh=layout))
+
+
+def oracle_static(args, device) -> Dict[str, Any]:
+    """Per arch: the whole engine's static streams, and the top-2 logits
+    and the scale of the logits each emitted token was picked from (what
+    the near-tie rule reads), recorded as the engine samples."""
+    spec = args["static_serve"]
+    out = {}
+    for arch in spec["archs"]:
+        model = _whole(spec, device, arch)
+        _gain(model, spec.get("branch_gain"))
+        reqs = _static_requests(model.cfg, spec)
+        eng = _static_engine(model, spec)
+        V, calls, sample = model.cfg.vocab, [], eng._sample
+
+        def recorded(logits, *a, **kw):
+            lg = logits[:, :V].float()
+            top = torch.topk(lg, 2)
+            calls.append((top.indices.cpu(), top.values.cpu(),
+                          lg.abs().amax(dim=-1).cpu()))
+            return sample(logits, *a, **kw)
+        eng._sample = recorded
+        streams = eng.generate(reqs)
+        tops = [dict(ids=torch.stack([c[0][i] for c in calls]),
+                     vals=torch.stack([c[1][i] for c in calls]),
+                     scale=torch.stack([c[2][i] for c in calls]))
+                for i in range(len(reqs))]
+        out[arch] = dict(streams=streams, tops=tops)
+        del model, eng
+        _free(device)
+    return out
+
+
+def task_static_serve(args, device, oracles) -> Dict[str, Any]:
+    """``args["static_serve"]``: per arch of ``archs``, the static engine
+    under ``layout`` (``decode_step`` and ``init_cache`` of the split
+    model) against the whole engine's streams: equal, or (unless
+    ``exact``) equal up to one swap where the whole model's top two
+    logits are within ``tie`` of its scale, which ends the comparison."""
+    from .mesh import make_layout
+    spec = args["static_serve"]
+    layout = make_layout(spec["layout"])
+    exact, tie = spec.get("exact", True), spec.get("tie", 1e-5)
+    out = {}
+    for arch in spec["archs"]:
+        whole = _whole(spec, device, arch)
+        _gain(whole, spec.get("branch_gain"))
+        reqs = _static_requests(whole.cfg, spec)
+        layout.stats.reset()
+        eng = _static_engine(whole, spec, layout)
+        del whole
+        _free(device)
+        t0 = _clock(device)
+        streams = eng.generate(reqs)
+        seconds = _clock(device) - t0
+        res = dict(streams=streams, seconds=seconds,
+                   collectives=dataclasses.asdict(layout.stats.stats()),
+                   distinct_tokens=[len(set(s)) for s in streams], vs=[])
+        del eng
+        _free(device)
+        for o in oracles:
+            want = o["static_serve"][arch]
+            compared, flips = 0, []
+            for i, (got, w) in enumerate(zip(streams, want["streams"])):
+                n = next((j for j, (a, b) in enumerate(zip(got, w))
+                          if a != b), None)
+                if n is None:
+                    check(len(got) == len(w), f"{arch} request {i}: "
+                                              f"stream lengths differ")
+                    compared += len(w)
+                    continue
+                check(not exact, f"{arch} request {i}: streams differ at "
+                                  f"token {n}")
+                top = want.get("tops")
+                check(top is not None, f"{arch} request {i}: streams "
+                                       f"differ at token {n}")
+                top = top[i]
+                margin = float(top["vals"][n, 0] - top["vals"][n, 1])
+                scale = float(top["scale"][n])
+                check(set(top["ids"][n].tolist()) == {got[n], w[n]} and
+                      margin < tie * scale,
+                      f"{arch} request {i}: streams differ at token {n} "
+                      f"where the top-2 logits are {margin} apart of "
+                      f"{scale}")
+                compared += n
+                flips.append(dict(request=i, position=n, margin=margin,
+                                  logit_scale=scale))
+            res["vs"].append(dict(whole_streams=want["streams"],
+                                  tokens_compared=compared, flips=flips))
+        res["digest"] = hashlib.sha256(json.dumps(streams).encode()
+                                       ).hexdigest()[:16]
+        out[arch] = res
+    return out
+
+
+def oracle(args, device) -> Dict[str, Any]:
+    """The whole-model results of every oracle task in ``args["tasks"]``
+    (what :func:`main` with ``--oracle`` saves)."""
+    device = torch.device(device)
+    out: Dict[str, Any] = {}
+    for task in args["tasks"]:
+        if task.startswith("train") and args[task].get("oracle", True):
+            out[task] = oracle_train(args[task], device)
+        elif task in ("moe_prefill", "ssm_prefill"):
+            out[task] = oracle_families(task, args, device)
+        elif task == "static_serve":
+            out[task] = oracle_static(args, device)
+    return out
+
+
 # ---------------------------------------------------------- rank program
 
 def main(argv=None) -> None:
     from .mesh import init_ranks, make_layout, rank_device
     ap = argparse.ArgumentParser()
-    ap.add_argument("--rank", type=int, required=True)
-    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--world", type=int, default=1)
     ap.add_argument("--workdir", required=True)
+    ap.add_argument("--oracle", action="store_true",
+                    help="compute the whole-model results of the args' "
+                         "tasks in this one process and save them to "
+                         "<workdir>/oracle.pt")
     a = ap.parse_args(argv)
     work = pathlib.Path(a.workdir)
     args = json.loads((work / "args.json").read_text())
     if args.get("threads"):
         torch.set_num_threads(int(args["threads"]))
     device = args.get("device")       # None: the card, as everywhere
+    if a.oracle:
+        from ..core.lower import resolve_device
+        t0 = time.perf_counter()
+        torch.save(oracle(args, resolve_device(device)), work / "oracle.pt")
+        (work / "oracle.json").write_text(json.dumps(
+            dict(seconds=time.perf_counter() - t0)))
+        return
     backend = init_ranks(a.rank, a.world, f"file://{work}/rendezvous",
                          device=device,
                          timeout_s=args.get("pg_timeout", 60.0))
@@ -423,7 +1035,12 @@ def main(argv=None) -> None:
                                   device=str(device),
                                   coords=layout.coords())
     tasks = args["tasks"]
-    if any(t != "psum" for t in tasks):
+    oracles = [torch.load(p, map_location="cpu", mmap=True)
+               for p in args.get("oracles", [])]
+    if any(t in ORACLE_TASKS for t in tasks) and \
+            args.get("oracle_in_rank", not oracles):
+        oracles.insert(0, oracle(args, device))
+    if any(t in ("prefill", "decode_paged", "serve") for t in tasks):
         model = _model(args, device)
         t1 = time.perf_counter()
         sharded = model.shard(layout)
@@ -436,6 +1053,12 @@ def main(argv=None) -> None:
         t1 = time.perf_counter()
         if task == "psum":
             res = task_psum(layout, args, device)
+        elif task.startswith("train"):
+            res = task_train(task, args, device, oracles)
+        elif task in ("moe_prefill", "ssm_prefill"):
+            res = task_families(task, args, device, oracles)
+        elif task == "static_serve":
+            res = task_static_serve(args, device, oracles)
         else:
             if task == "serve" and args.get("serve_branch_gain"):
                 _gain(model, args["serve_branch_gain"])

@@ -35,6 +35,7 @@ multiple of the KV heads, each rank keeps the KV head of its query group
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
@@ -218,25 +219,74 @@ def tp_heads(cfg, layout) -> Tuple[int, int]:
 
 
 def check_tensor_parallel(cfg, layout) -> None:
-    """Raise for what the port does not shard over "model" yet: MoE expert
-    parallelism and the Mamba2/Zamba2 families (``NotImplementedError``,
-    ROADMAP A11b); a head count the axis does not fit, or an MLP width it
-    does not divide (``ValueError``).  The rows of ``wo`` (the query
-    heads' columns) and of ``w_down`` (``d_ff``) are summed over "model"
-    after their products: a dim the axis left whole would be summed once
-    per rank."""
+    """Raise ``ValueError`` for a "model" axis that the model's heads,
+    experts or widths do not fit: the query and KV heads
+    (:func:`tp_heads`), the MLP width (dense, and Zamba2's shared
+    block), the shared experts' width, the expert count (the real one or
+    the reference's padded one must divide) and Mamba2's heads.  The rows
+    of ``wo``, ``w_down`` and ``out_proj`` are summed over "model" after
+    their products: a dim the axis left whole would be summed once per
+    rank."""
     m = layout.size("model")
     if m == 1:
         return
-    if cfg.family in ("moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism of the {cfg.family!r} family "
-            f"(model axis {m}) is not ported yet (ROADMAP A11b); a layout "
-            f"with model = 1 runs it")
-    tp_heads(cfg, layout)
-    if cfg.d_ff % m:
+    if cfg.n_heads:
+        tp_heads(cfg, layout)
+    if cfg.family not in ("moe", "ssm") and cfg.d_ff % m:
         raise ValueError(f"{cfg.name}: the model axis ({m}) does not "
                          f"divide d_ff ({cfg.d_ff}), the rows of w_down")
+    if cfg.family == "moe":
+        E, shared = cfg.moe.n_experts, cfg.moe.n_shared * cfg.moe.d_expert
+        if E % m and cfg.n_experts_padded % m:
+            raise ValueError(f"{cfg.name}: the model axis ({m}) divides "
+                             f"neither the {E} experts nor their padded "
+                             f"count {cfg.n_experts_padded}")
+        if shared % m:
+            raise ValueError(f"{cfg.name}: the model axis ({m}) does not "
+                             f"divide the shared experts' width {shared}")
+    if cfg.family in ("ssm", "hybrid"):
+        H = _ssm_heads(cfg)
+        if H % m:
+            raise ValueError(f"{cfg.name}: the model axis ({m}) does not "
+                             f"divide the {H} Mamba2 heads")
+
+
+def _ssm_heads(cfg) -> int:
+    return cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+
+
+def expert_range(cfg, layout) -> Tuple[int, int]:
+    """(first expert, count) of the real experts this rank holds: a block
+    of the real count where "model" divides it, else of the reference's
+    padded count (``n_experts_padded``), whose pads the port does not
+    hold: a rank may then hold fewer real experts, or none."""
+    E, m = cfg.moe.n_experts, layout.size("model")
+    per = E // m if E % m == 0 else cfg.n_experts_padded // m
+    lo = layout.index("model") * per
+    return min(lo, E), max(0, min(per, E - lo))
+
+
+def _mamba_parts(name: str, cfg, layout):
+    """(dim, [(start, length), ...]) of a Mamba2 leaf that this rank
+    holds (split by head), or None for a leaf it holds whole."""
+    H, P = _ssm_heads(cfg), cfg.ssm.head_dim
+    d_in, bc = H * P, 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+    m, i = layout.size("model"), layout.index("model")
+    h, c = H // m, H * P // m
+    return {
+        "in_proj": (-1, [(i * c, c), (d_in + i * c, c), (2 * d_in, bc),
+                         (2 * d_in + bc + i * h, h)]),
+        "conv_w": (-1, [(i * c, c), (d_in, bc)]),
+        "conv_b": (-1, [(i * c, c), (d_in, bc)]),
+        "A_log": (-1, [(i * h, h)]), "D": (-1, [(i * h, h)]),
+        "dt_bias": (-1, [(i * h, h)]),
+        "norm_scale": (-1, [(i * c, c)]),
+        "out_proj": (-2, [(i * c, c)]),
+    }.get(name)
+
+
+def _take(t: torch.Tensor, dim: int, parts) -> torch.Tensor:
+    return torch.cat([t.narrow(dim, a, n) for a, n in parts], dim=dim)
 
 
 def kv_head_range(cfg, layout) -> Tuple[int, int]:
@@ -274,10 +324,15 @@ def shard_params(params: Any, layout, cfg=None) -> Any:
     axis; a dim the axis does not divide stays whole, as
     :func:`filter_spec_for_layout` rules.  An int8-packed ``s`` follows
     its ``q`` wherever it has the sliced dim in full.  With ``cfg`` (and
-    "model" > 1) the layout is checked (:func:`check_tensor_parallel`)
-    and K/V projections follow the heads (:func:`_kv_columns`).  Blocks
-    are copies: the full tree can be freed."""
+    "model" > 1) the layout is checked (:func:`check_tensor_parallel`),
+    K/V projections follow the heads (:func:`_kv_columns`), experts are
+    split by :func:`expert_range`, and Mamba2's leaves by head
+    (:func:`_mamba_parts`: the z, x and dt columns of the rank's heads
+    and the whole B and C; the reference's spec splits ``in_proj``'s
+    packed columns evenly instead, ROADMAP C).  Blocks are copies: the
+    full tree can be freed."""
     kv_cols = None
+    special = cfg is not None and layout.size("model") > 1
     if cfg is not None:
         check_tensor_parallel(cfg, layout)
         kv_cols = _kv_columns(cfg, layout)
@@ -293,6 +348,20 @@ def shard_params(params: Any, layout, cfg=None) -> Any:
                 out = _block(out, dim, layout, axis)
         return out.clone(memory_format=torch.contiguous_format)
 
+    def by_rule(t, name, in_experts, path):
+        """The model-axis block of a leaf the specs do not cover, or
+        None."""
+        if not special:
+            return None
+        if in_experts and name in ("w_gate", "w_up", "w_down"):
+            lo, n = expert_range(cfg, layout)
+            return t.narrow(0, lo, n)
+        if "/mamba/" in path:
+            plan = _mamba_parts(name, cfg, layout)
+            if plan is not None and t.shape[plan[0]] > 1:
+                return _take(t, *plan)
+        return None
+
     def walk(tree, path="", in_experts=False):
         if isinstance(tree, (list, tuple)):
             return [walk(v, path, in_experts) for v in tree]
@@ -301,8 +370,17 @@ def shard_params(params: Any, layout, cfg=None) -> Any:
             return {k: walk(v, path + "/" + k, in_experts or k == "experts")
                     for k, v in tree.items()}
         w = tree["q"] if packed else tree
-        kv_head = kv_cols is not None and \
-            path.rsplit("/", 1)[-1] in _KV_LEAVES
+        name = path.rsplit("/", 1)[-1]
+        ruled = by_rule(w, name, in_experts, path)
+        if ruled is not None:
+            if not packed:
+                return ruled.clone(memory_format=torch.contiguous_format)
+            s = tree["s"]
+            s_ruled = by_rule(s, name, in_experts, path)
+            return {"q": ruled.clone(memory_format=torch.contiguous_format),
+                    "s": s.clone() if s_ruled is None else s_ruled.clone(
+                        memory_format=torch.contiguous_format)}
+        kv_head = kv_cols is not None and name in _KV_LEAVES
         spec = _spec_for(path, w.dim(), in_experts)
         if kv_head:           # the head's columns, whatever they divide
             spec = tuple(None if a is None else "model" for a in spec)
@@ -315,6 +393,75 @@ def shard_params(params: Any, layout, cfg=None) -> Any:
                        else None for d, a in enumerate(spec))
         return {"q": one(w, spec, kv_head), "s": one(s, s_spec, kv_head)}
     return walk(params)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """One leaf's entry of :func:`train_plan`."""
+    zero_dim: Optional[int]
+    owned: Any
+
+
+def train_plan(cfg, layout) -> Any:
+    """Per leaf of a rank's param tree (the tree ``Model.shard`` gives),
+    what a sharded train step needs: a :class:`LeafPlan` (``zero_dim``,
+    ``owned``).
+
+    ``zero_dim``: the dim whose block along "data" this rank's AdamW
+    state holds (the reference's ``opt_pspecs``: :func:`zero_shard`'s
+    largest dim >= 16 that the param spec leaves replicated, where the
+    "data" axis divides it), or None (every data rank holds it whole).
+
+    ``owned``: which of the leaf's elements this rank counts in the
+    global gradient norm, so that each element of the whole model is
+    counted once over "model": True (a block of its own), False (a copy
+    that rank 0 of "model", or of its KV group, counts), or a bool
+    tensor over the last dim (Mamba2's ``in_proj`` and conv, whose B and
+    C columns every rank holds alike)."""
+    from ..models.transformer import Model
+    whole = Model(cfg, torch.device("cpu")).init_shapes()
+    m, i = layout.size("model"), layout.index("model")
+    data = layout.size("data")
+    kv_group = m // cfg.n_kv_heads if cfg.n_kv_heads and \
+        m > cfg.n_kv_heads else 1
+    bc = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+
+    def owned(path, name, spec, in_experts):
+        if m == 1:
+            return True
+        if name in _KV_LEAVES and kv_group > 1 and "/attn/" in path:
+            return i % kv_group == 0
+        if in_experts and name in ("w_gate", "w_up", "w_down"):
+            return True
+        if "/mamba/" in path and name in ("in_proj", "conv_w", "conv_b"):
+            c = _ssm_heads(cfg) * cfg.ssm.head_dim // m
+            h = _ssm_heads(cfg) // m
+            mask = [True] * (2 * c if name == "in_proj" else c) + \
+                [i == 0] * bc + ([True] * h if name == "in_proj" else [])
+            return torch.tensor(mask)
+        return "model" in spec or i == 0
+
+    def walk(tree, path="", in_experts=False):
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, path, in_experts) for v in tree]
+        if isinstance(tree, dict):
+            return {k: walk(v, path + "/" + k, in_experts or k == "experts")
+                    for k, v in tree.items()}
+        name = path.rsplit("/", 1)[-1]
+        spec = _spec_for(path, tree.dim(), in_experts)
+        parts = _mamba_parts(name, cfg, layout) if "/mamba/" in path \
+            else None
+        if parts is not None and m > 1:       # split by head
+            spec = tuple("model" if d == parts[0] % tree.dim() else a
+                         for d, a in enumerate(spec))
+        z = zero_shard(spec, tuple(tree.shape))
+        zero_dim = z.index("data") if "data" in z else None
+        if zero_dim is not None and (data == 1 or
+                                     tree.shape[zero_dim] % data):
+            zero_dim = None
+        local = filter_spec_for_layout(spec, layout, tree.shape)
+        return LeafPlan(zero_dim, owned(path, name, local, in_experts))
+    return walk(whole)
 
 
 _KV_LEAVES = ("wk", "wv", "bk", "bv")

@@ -63,7 +63,8 @@ def attention_prefill(params, x, *, n_heads, n_kv, hd, theta,
     q, k, v = _qkv(params, x, n_heads, n_kv, hd, positions, theta, quant)
     out = flash_attention(q, k, v, causal=True, window=window,
                           logit_cap=logit_cap)
-    y = linear(out.reshape(B, S, n_heads * hd), params["wo"], quant=quant)
+    y = linear(out.reshape(B, S, n_heads * hd), params["wo"], quant=quant,
+               row_split=True)
     if return_kv:
         return y, (k, v)
     return y
@@ -130,7 +131,7 @@ def attention_decode(params, x, cache: Dict[str, torch.Tensor],
     out = torch.einsum("bqkgs,bskh->bqkgh", p,
                        cache["v"].to(torch.float32) * kv_deq)
     out = out.reshape(B, S1, n_heads * hd).to(x.dtype)
-    y = linear(out, params["wo"], quant=quant)
+    y = linear(out, params["wo"], quant=quant, row_split=True)
     return y, cache
 
 
@@ -238,7 +239,7 @@ def paged_attention(params, x, k_pages, v_pages, page_table, lengths, *,
     if int_cache:
         out = out * _head_scale(v_scale, n_kv, x.device)
     out = out.reshape(B, T, n_heads * hd).to(x.dtype)
-    y = linear(out, params["wo"], quant=quant)
+    y = linear(out, params["wo"], quant=quant, row_split=True)
     return y, k_pages, v_pages
 
 

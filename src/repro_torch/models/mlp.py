@@ -25,4 +25,4 @@ def apply_mlp(params, x: torch.Tensor, act: str = "silu",
     u = linear(x, params["w_up"], quant=quant)
     # jax.nn.gelu defaults to the tanh approximation; PyTorch's to erf
     h = (F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")) * u
-    return linear(h, params["w_down"], quant=quant)
+    return linear(h, params["w_down"], quant=quant, row_split=True)

@@ -9,17 +9,20 @@ gates.  The reference has no Pallas kernel here (einsum, ``top_k``,
 scatter), so neither has the port.
 
 The reference pads the expert arrays to ``n_experts_padded`` (a multiple
-of 16) for expert parallelism and never routes to the pads; on one card
-the port keeps only the ``n_experts`` real ones (ROADMAP C).
+of 16) for expert parallelism and never routes to the pads; the port
+keeps only the ``n_experts`` real ones (ROADMAP C).  Under expert
+parallelism each rank holds a block of them (``launch/shardings.py
+expert_range``: of the real count where "model" divides it, else of the
+padded count, so a rank may hold fewer real experts, or none).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init
+from .common import TensorParallel, dense_init
 from .mlp import apply_mlp, init_mlp
 
 
@@ -89,44 +92,63 @@ def route(params, x: torch.Tensor, *, top_k: int,
 
 
 def apply_moe(params, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25, act: str = "silu", quant=None
+              capacity_factor: float = 1.25, act: str = "silu", quant=None,
+              tp: Optional[TensorParallel] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d) → (y, {"load_balance", "router_z"}).  ``quant`` reaches
-    the shared MLP only, as in the reference."""
+    the shared MLP only, as in the reference.
+
+    Expert parallelism (``tp`` over a "model" axis > 1): the routing is
+    computed alike on every rank; a rank holds the experts ``tp.experts``
+    (first, count) names and dispatches only the kept slots routed to
+    them; every other slot reads a zero row.  The weighted sum is the
+    rank's share of ``y`` (each kept slot has one owner), the shared MLP
+    is split as a dense one, and one all-reduce over "model" joins both.
+    ``x`` and the gates enter the split work through ``tp.copy``, so
+    their gradients (and the router's) are the whole ones."""
     B, S, d = x.shape
     we = params["experts"]
     r = route(params, x, top_k=top_k, capacity_factor=capacity_factor)
     E, C, n = r.probs.shape[-1], r.C, S * top_k
-    flat_e = r.gate_idx.reshape(B, n)
+    lo, E_l = tp.experts if tp is not None and tp.size > 1 else (0, E)
+    xin = x if tp is None else tp.copy(x)
+    gates = r.gate_vals if tp is None else tp.copy(r.gate_vals)
+    flat_e = r.gate_idx.reshape(B, n) - lo
+    keep = r.in_cap & (flat_e >= 0) & (flat_e < E_l)
     pos_c = torch.clamp(r.pos, 0, C - 1)
-    # flat place of each slot in the (B, E, C) layout, and its token
+    # flat place of each slot in this rank's (B, E_l, C) layout, or a
+    # trash row past the end for slots it does not run, and its token
     rows = torch.arange(B, device=x.device)[:, None]
-    slot = ((rows * E + flat_e) * C + pos_c).reshape(-1)      # (B·n,)
+    trash = B * E_l * C
+    slot = torch.where(keep, (rows * E_l + flat_e) * C + pos_c,
+                       trash).reshape(-1)                     # (B·n,)
     token = torch.arange(B * S, device=x.device).repeat_interleave(top_k)
 
     # dispatch: every kept slot is written to its own place and every
-    # dropped one to a trash row past the end, so a dropped slot cannot
-    # overwrite a kept token (and no mask is synchronised to the host)
-    trash = B * E * C
-    xe = x.new_zeros((trash + 1, d))
-    xe[torch.where(r.in_cap.reshape(-1), slot, trash)] = \
-        x.reshape(B * S, d)[token]
+    # other one to the trash row, so a dropped slot cannot overwrite a
+    # kept token (and no mask is synchronised to the host)
+    xe = xin.new_zeros((trash + 1, d))
+    xe[slot] = xin.reshape(B * S, d)[token]
     xe = xe[:trash]
-    # experts: one batched product per weight, E batches of B·C rows
-    xe = xe.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+    # experts: one batched product per weight, E_l batches of B·C rows
+    xe = xe.reshape(B, E_l, C, d).transpose(0, 1).reshape(E_l, B * C, d)
     g = torch.bmm(xe, we["w_gate"])
     u = torch.bmm(xe, we["w_up"])
     h = (F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")) * u
-    ye = torch.bmm(h, we["w_down"])                           # (E, B·C, d)
-    ye = ye.reshape(E, B, C, d).transpose(0, 1).reshape(B * E * C, d)
+    ye = torch.bmm(h, we["w_down"])                          # (E_l, B·C, d)
+    ye = ye.reshape(E_l, B, C, d).transpose(0, 1).reshape(trash, d)
 
-    # combine: gather back, weight by the gates (0 for dropped slots)
+    # combine: gather back (the trash row is zero), weight by the gates
+    # (0 for slots dropped or not this rank's)
+    ye = torch.cat([ye, ye.new_zeros((1, d))])
     y_tok = ye[slot].reshape(B, n, d)
-    w_tok = r.gate_vals.reshape(B, n) * r.in_cap.to(r.gate_vals.dtype)
+    w_tok = gates.reshape(B, n) * keep.to(gates.dtype)
     y = (y_tok.to(torch.float32) * w_tok[..., None]).reshape(
         B, S, top_k, d).sum(dim=2).to(x.dtype)
     if "shared" in params:
-        y = y + apply_mlp(params["shared"], x, act=act, quant=quant)
+        y = y + apply_mlp(params["shared"], xin, act=act, quant=quant)
+    if tp is not None:
+        y = tp.reduce(y)
 
     # aux: Switch load-balance + router z-loss
     ids = r.gate_idx.reshape(-1)

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import SSMConfig
-from .common import dense_init, linear, rms_norm
+from .common import TensorParallel, dense_init, linear, rms_norm
 
 
 def init_mamba2(gen: torch.Generator, d: int, ssm: SSMConfig, dtype
@@ -137,22 +137,47 @@ def ssd_chunked(xh, dt, A, B_, C_, chunk: int):
 
 def apply_mamba2(params, x, ssm: SSMConfig, *, quant=None,
                  state: Optional[Dict[str, torch.Tensor]] = None,
-                 decode: bool = False):
+                 decode: bool = False, tp: Optional[TensorParallel] = None):
     """x (B, S, d).  Prefill (``state=None``, ``decode=False``) → (y, the
     final states, new tensors).  Decode: S == 1 with a state dict {"conv",
-    "ssd"} → (y, that dict, updated in place)."""
-    Bb, S, d = x.shape
-    d_in = ssm.expand * d
-    H = d_in // ssm.head_dim
-    G, N, P = ssm.n_groups, ssm.d_state, ssm.head_dim
+    "ssd"} → (y, that dict, updated in place).
 
-    proj = linear(x, params["in_proj"], quant=quant)
-    z, xbc, dt_raw = _split_proj(proj, d_in, G, N, H)
+    Under tensor parallelism (``tp`` over a "model" axis > 1, the params
+    a rank's blocks: ``launch/shardings.py``) the rank runs its H/m heads:
+    ``in_proj`` holds the z, x and dt columns of those heads and the
+    whole B and C (``n_groups`` = 1), ``conv_w``/``conv_b`` the x
+    channels of its heads and B, C, and ``A_log``, ``D``, ``dt_bias`` and
+    ``norm_scale`` its heads' entries.  B and C are computed alike on
+    every rank and enter the split SSD through ``tp.copy``; the gated
+    RMSNorm's sum of squares is summed over "model"; ``out_proj`` is
+    split by row and its products summed.  The state is the rank's:
+    conv (B, K-1, d_in/m + 2N), SSD (B, H/m, P, N)."""
+    Bb, S, d = x.shape
+    H = params["A_log"].shape[0]            # this rank's heads
+    G, N, P = ssm.n_groups, ssm.d_state, ssm.head_dim
+    d_in = H * P
+    split = tp is not None and tp.size > 1
+
+    if not split:
+        proj = linear(x, params["in_proj"], quant=quant)
+        z, xbc, dt_raw = _split_proj(proj, d_in, G, N, H)
+    else:
+        w = params["in_proj"]
+        if not isinstance(w, torch.Tensor):  # packed int8 weights {q, s}
+            w = w["q"].to(x.dtype) * w["s"].to(x.dtype)
+        xc = tp.copy(x)
+        zx = linear(xc, w[:, :2 * d_in], quant=quant)
+        bc = linear(x, w[:, 2 * d_in:2 * d_in + 2 * G * N], quant=quant)
+        dt_raw = linear(xc, w[:, 2 * d_in + 2 * G * N:], quant=quant)
+        z, xbc = zx[..., :d_in], torch.cat([zx[..., d_in:], bc], dim=-1)
     xbc, new_conv = causal_conv(xbc, params["conv_w"], params["conv_b"],
                                 state.get("conv") if state else None)
     xs = xbc[..., :d_in]
-    B_ = xbc[..., d_in:d_in + G * N].reshape(Bb, S, G, N)
-    C_ = xbc[..., d_in + G * N:].reshape(Bb, S, G, N)
+    bc = xbc[..., d_in:]
+    if split:
+        bc = tp.copy(bc)
+    B_ = bc[..., :G * N].reshape(Bb, S, G, N)
+    C_ = bc[..., G * N:].reshape(Bb, S, G, N)
     dt = F.softplus(dt_raw.to(torch.float32) + params["dt_bias"])  # (B,S,H)
     A = torch.exp(params["A_log"])                                   # (H,)
     xh = xs.reshape(Bb, S, H, P)
@@ -178,15 +203,34 @@ def apply_mamba2(params, x, ssm: SSMConfig, *, quant=None,
     y = y + params["D"][:, None] * xh.to(torch.float32)
     y = y.reshape(Bb, S, d_in).to(x.dtype)
     # gated RMSNorm (mamba2): norm(y * silu(z))
-    y = rms_norm(y * F.silu(z), params["norm_scale"])
-    return linear(y, params["out_proj"], quant=quant), new_state
+    if not split:
+        y = rms_norm(y * F.silu(z), params["norm_scale"])
+        return linear(y, params["out_proj"], quant=quant), new_state
+    y = _split_rms_norm(y * F.silu(z), params["norm_scale"], tp)
+    return tp.reduce(linear(y, params["out_proj"], quant=quant,
+                            row_split=True)), new_state
+
+
+def _split_rms_norm(x: torch.Tensor, scale: torch.Tensor,
+                    tp: TensorParallel, eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm`` of a tensor whose last dim is split over "model": the
+    sum of squares is summed over the axis (and its gradient too: every
+    rank's part depends on it) before the mean."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    ss = tp.copy(tp.reduce(torch.sum(torch.square(x), dim=-1,
+                                     keepdim=True)))
+    x = x * torch.rsqrt(ss / (x.shape[-1] * tp.size) + eps)
+    return (x * (1.0 + scale.to(torch.float32))).to(dt)
 
 
 def init_mamba_state(batch: int, d: int, ssm: SSMConfig, dtype,
-                     device=None) -> Dict[str, torch.Tensor]:
-    d_in = ssm.expand * d
-    H = d_in // ssm.head_dim
-    ch = d_in + 2 * ssm.n_groups * ssm.d_state
+                     device=None, n_heads: Optional[int] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Zero conv and SSD states; ``n_heads``: a rank's heads under tensor
+    parallelism (default: all of them)."""
+    H = n_heads or ssm.expand * d // ssm.head_dim
+    ch = H * ssm.head_dim + 2 * ssm.n_groups * ssm.d_state
     return {
         "conv": torch.zeros((batch, ssm.d_conv - 1, ch), dtype=dtype,
                             device=device),

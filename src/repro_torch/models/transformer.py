@@ -41,18 +41,24 @@ Tensor parallelism (``Model.shard(layout)``, Megatron style, following
 holds the columns of ``wq/wk/wv/bq/bk/bv`` and ``w_gate/w_up`` of its
 heads and of its share of ``d_ff``, the matching rows of ``wo`` and
 ``w_down``, and one ``all_reduce`` sums each of those two products over
-the axis.  The embedding is vocab-parallel: a rank looks up the tokens of
-its vocab range, writes zeros for the others, and an ``all_reduce`` adds
-them (exact: one term of each sum is not zero); the tied head is split by
-column and an ``all_gather`` joins the logits before the vocab-pad mask.
-Norms and RoPE are replicated, so every rank ends with the same logits.
-``forward`` and ``decode_paged`` run sharded; ``decode_step``, ``loss``,
-fake-quant and the MoE/Mamba2/Zamba2 families refuse a "model" axis > 1
-(ROADMAP A11b).
+the axis; the input of each column-split product enters through
+``Layout.copy`` (identity forward, its gradient summed over the axis),
+so ``loss`` differentiates the split model and every rank holds the
+whole gradient of each replicated leaf.  The embedding is
+vocab-parallel: a rank looks up the tokens of its vocab range, writes
+zeros for the others, and an ``all_reduce`` adds them (exact: one term
+of each sum is not zero); the tied head is split by column and an
+``all_gather`` joins the logits before the vocab-pad mask.  Norms and
+RoPE are replicated, so every rank ends with the same logits, and the
+loss read from them is the same on every rank.  MoE runs expert
+parallel (``moe.apply_moe``), Mamba2 by head (``ssm.apply_mamba2``),
+Zamba2's shared attention by the dense rules; ``decode_step`` and
+``init_cache`` hold the rank's KV heads and Mamba2 states.  Fake-quant
+under a layout takes each scale over the ranks that hold the rest of
+its tensor (``common.LayoutQuant``).
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -63,7 +69,8 @@ from ..configs.base import ArchConfig
 from ..core.lower import resolve_device
 from .attention import (attention_decode, attention_prefill, init_attention,
                         init_kv_cache, paged_attention)
-from .common import ShapeOnly, dense_init, embed_init, rms_norm, softcap
+from .common import (LayoutQuant, ShapeOnly, TensorParallel, dense_init,
+                     embed_init, rms_norm, softcap)
 from .convert import ParamTree, load_reference_params, unflatten
 from .mlp import apply_mlp, init_mlp
 from .moe import apply_moe, init_moe
@@ -73,22 +80,20 @@ DENSE_FAMILIES = ("dense", "vlm", "audio")
 FAMILIES = DENSE_FAMILIES + ("moe", "ssm", "hybrid")
 
 
-@dataclasses.dataclass(frozen=True)
-class TensorParallel:
-    """What one rank of a layout's "model" axis runs: its query and KV
-    heads, and the sum of the row-split products over the axis (nothing
-    to sum without a layout)."""
-    n_heads: int
-    n_kv: int
-    layout: Any = None
-
-    def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.layout is None else \
-            self.layout.all_reduce(x, "model")
-
-
 def _full(cfg: ArchConfig, tp: Optional[TensorParallel]) -> TensorParallel:
-    return tp or TensorParallel(cfg.n_heads, cfg.n_kv_heads)
+    return tp or TensorParallel(cfg.n_heads, cfg.n_kv_heads,
+                                experts=(0, cfg.moe.n_experts))
+
+
+def _attn(p, tp: TensorParallel):
+    """A layer's attention params as the rank runs them: the KV
+    projections through ``tp.shared`` when several ranks hold one KV
+    head (a differentiated tree is a dict; a module's weights carry no
+    gradient)."""
+    if tp.kv_group == 1 or not isinstance(p, dict):
+        return p
+    return {k: tp.shared(v) if k in ("wk", "wv", "bk", "bv") else v
+            for k, v in p.items()}
 
 
 def _init_dense_layer(gen: torch.Generator, cfg: ArchConfig
@@ -114,13 +119,13 @@ def _dense_layer_fwd(p, x, cfg: ArchConfig, *, window: int, quant=None,
                      tp: Optional[TensorParallel] = None):
     tp = _full(cfg, tp)
     h = tp.reduce(attention_prefill(
-        p["attn"], rms_norm(x, p["ln1"]), n_heads=tp.n_heads,
-        n_kv=tp.n_kv, hd=cfg.hd, theta=cfg.rope_theta,
+        _attn(p["attn"], tp), tp.copy(rms_norm(x, p["ln1"])),
+        n_heads=tp.n_heads, n_kv=tp.n_kv, hd=cfg.hd, theta=cfg.rope_theta,
         logit_cap=cfg.attn_softcap, window=window, quant=quant))
     if cfg.post_norms:
         h = rms_norm(h, p["post_ln1"])
     x = x + h
-    h = tp.reduce(apply_mlp(p["mlp"], rms_norm(x, p["ln2"]),
+    h = tp.reduce(apply_mlp(p["mlp"], tp.copy(rms_norm(x, p["ln2"])),
                             act=cfg.mlp_act, quant=quant))
     if cfg.post_norms:
         h = rms_norm(h, p["post_ln2"])
@@ -128,17 +133,20 @@ def _dense_layer_fwd(p, x, cfg: ArchConfig, *, window: int, quant=None,
 
 
 def _dense_layer_dec(p, x, cache, idx, cfg: ArchConfig, *, window: int,
-                     quant=None, rolling: bool = False, valid_from=None):
+                     quant=None, rolling: bool = False, valid_from=None,
+                     tp: Optional[TensorParallel] = None):
+    tp = _full(cfg, tp)
     h, cache = attention_decode(
-        p["attn"], rms_norm(x, p["ln1"]), cache, idx, n_heads=cfg.n_heads,
-        n_kv=cfg.n_kv_heads, hd=cfg.hd, theta=cfg.rope_theta,
+        _attn(p["attn"], tp), tp.copy(rms_norm(x, p["ln1"])), cache, idx,
+        n_heads=tp.n_heads, n_kv=tp.n_kv, hd=cfg.hd, theta=cfg.rope_theta,
         logit_cap=cfg.attn_softcap, window=window, quant=quant,
         rolling=rolling, valid_from=valid_from)
+    h = tp.reduce(h)
     if cfg.post_norms:
         h = rms_norm(h, p["post_ln1"])
     x = x + h
-    h = apply_mlp(p["mlp"], rms_norm(x, p["ln2"]), act=cfg.mlp_act,
-                  quant=quant)
+    h = tp.reduce(apply_mlp(p["mlp"], tp.copy(rms_norm(x, p["ln2"])),
+                            act=cfg.mlp_act, quant=quant))
     if cfg.post_norms:
         h = rms_norm(h, p["post_ln2"])
     return x + h, cache
@@ -166,37 +174,43 @@ def _init_mamba_layer(gen: torch.Generator, cfg: ArchConfig
     }
 
 
-def _moe_ffn(p, x, cfg: ArchConfig, quant):
+def _moe_ffn(p, x, cfg: ArchConfig, quant, tp: TensorParallel):
     return apply_moe(p["moe"], rms_norm(x, p["ln2"]), top_k=cfg.moe.top_k,
                      capacity_factor=cfg.moe.capacity_factor,
-                     act=cfg.mlp_act, quant=quant)
+                     act=cfg.mlp_act, quant=quant, tp=tp)
 
 
-def _moe_layer_fwd(p, x, cfg: ArchConfig, *, quant=None):
-    h = attention_prefill(
-        p["attn"], rms_norm(x, p["ln1"]), n_heads=cfg.n_heads,
-        n_kv=cfg.n_kv_heads, hd=cfg.hd, theta=cfg.rope_theta, quant=quant)
+def _moe_layer_fwd(p, x, cfg: ArchConfig, *, quant=None,
+                   tp: Optional[TensorParallel] = None):
+    tp = _full(cfg, tp)
+    h = tp.reduce(attention_prefill(
+        _attn(p["attn"], tp), tp.copy(rms_norm(x, p["ln1"])),
+        n_heads=tp.n_heads, n_kv=tp.n_kv, hd=cfg.hd, theta=cfg.rope_theta,
+        quant=quant))
     x = x + h
-    h, aux = _moe_ffn(p, x, cfg, quant)
+    h, aux = _moe_ffn(p, x, cfg, quant, tp)
     return x + h, aux
 
 
 def _moe_layer_dec(p, x, cache, idx, cfg: ArchConfig, *, quant=None,
-                   valid_from=None):
+                   valid_from=None, tp: Optional[TensorParallel] = None):
+    tp = _full(cfg, tp)
     h, cache = attention_decode(
-        p["attn"], rms_norm(x, p["ln1"]), cache, idx, n_heads=cfg.n_heads,
-        n_kv=cfg.n_kv_heads, hd=cfg.hd, theta=cfg.rope_theta, quant=quant,
-        valid_from=valid_from)
-    x = x + h
-    h, _ = _moe_ffn(p, x, cfg, quant)
+        _attn(p["attn"], tp), tp.copy(rms_norm(x, p["ln1"])), cache, idx,
+        n_heads=tp.n_heads, n_kv=tp.n_kv, hd=cfg.hd, theta=cfg.rope_theta,
+        quant=quant, valid_from=valid_from)
+    x = x + tp.reduce(h)
+    h, _ = _moe_ffn(p, x, cfg, quant, tp)
     return x + h
 
 
-def _mamba_layer(p, x, cfg: ArchConfig, *, quant=None, state=None):
+def _mamba_layer(p, x, cfg: ArchConfig, *, quant=None, state=None,
+                 tp: Optional[TensorParallel] = None):
     """Prefill (``state=None``) or one decode step against ``state``,
     updated in place; returns the new residual stream."""
     h, _ = apply_mamba2(p["mamba"], rms_norm(x, p["ln"]), cfg.ssm,
-                        quant=quant, state=state, decode=state is not None)
+                        quant=quant, state=state, decode=state is not None,
+                        tp=tp)
     return x + h
 
 
@@ -269,29 +283,40 @@ class Model(nn.Module):
     def shard(self, layout) -> "Model":
         """A tensor-parallel copy on the same device holding this rank's
         block of every weight (``launch/shardings.py shard_params``);
-        this model is left whole.  Raises for what is not sharded yet
+        this model is left whole (with "model" = 1 the copy shares its
+        weights: only data parallelism then splits anything).  Raises ``ValueError`` for a layout
+        whose "model" axis the heads, experts or widths do not fit
         (``check_tensor_parallel``)."""
         from ..launch.shardings import shard_params
         out = Model(self.cfg, self.device)
         out.layout = layout
+        if layout.size("model") == 1:      # nothing to split: the weights
+            out.params = self._weights()   # themselves, shared
+            return out
         out.params = ParamTree(shard_params(self.param_tree(), layout,
                                             self.cfg))
         return out
 
-    def _tp(self, quant=None, what: str = "forward") -> TensorParallel:
-        """This rank's heads and reduction; ``what`` names the caller
-        refused under a "model" axis > 1."""
+    def _tp(self) -> TensorParallel:
+        """This rank's heads, experts and reduction."""
         cfg, layout = self.cfg, self.layout
         if layout is None or layout.size("model") == 1:
-            return TensorParallel(cfg.n_heads, cfg.n_kv_heads)
-        if what not in ("forward", "decode_paged") or quant is not None:
-            raise NotImplementedError(
-                f"{what}{' with fake-quant' if quant is not None else ''} "
-                f"under tensor parallelism (model axis "
-                f"{layout.size('model')}) is not ported yet (ROADMAP "
-                f"A11b)")
-        from ..launch.shardings import tp_heads
-        return TensorParallel(*tp_heads(cfg, layout), layout=layout)
+            return _full(cfg, None)
+        from ..launch.shardings import expert_range, tp_heads
+        m, KV = layout.size("model"), cfg.n_kv_heads
+        return TensorParallel(
+            *(tp_heads(cfg, layout) if cfg.n_heads else (0, 0)),
+            layout=layout, experts=expert_range(cfg, layout),
+            kv_group=m // KV if KV and m > KV else 1)
+
+    def _quant(self, quant):
+        """``quant`` as the layers take it: under a layout of more than
+        one rank a :class:`LayoutQuant`, whose scales are maxima over the
+        ranks that hold the rest of each tensor."""
+        if quant is None or self.layout is None or \
+                self.layout.n_devices == 1:
+            return quant
+        return LayoutQuant(quant, self.layout)
 
     # ------------------------------------------------------ embeddings
     def _embed(self, params, tokens, frontend_embed):
@@ -322,8 +347,11 @@ class Model(nn.Module):
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         if not isinstance(head, torch.Tensor):       # int8-packed lm_head
             head = head["q"].to(x.dtype) * head["s"].to(x.dtype)
+        split = head.shape[-1] != cfg.vocab_padded   # column-split head
+        if split:
+            x = self.layout.copy(x, "model")
         logits = torch.matmul(x, head)
-        if logits.shape[-1] != cfg.vocab_padded:    # column-split head
+        if split:
             logits = self.layout.all_gather(logits, "model", dim=-1)
         logits = softcap(logits, cfg.final_softcap)
         if cfg.vocab_padded != cfg.vocab:       # in place: logits are big
@@ -353,23 +381,24 @@ class Model(nn.Module):
                 # reference's jax.checkpoint does
                 return checkpoint(fn, *args, use_reentrant=False, **kw)
             return fn(*args, **kw)
-        tp = self._tp(quant)
+        tp = self._tp()
+        quant = self._quant(quant)
         x = self._embed(params, tokens, frontend_embed)
         layers = params["layers"]
         aux = None
         if cfg.family == "moe":
             auxs = []
             for p in layers:
-                x, a = run(_moe_layer_fwd, p, x, cfg, quant=quant)
+                x, a = run(_moe_layer_fwd, p, x, cfg, quant=quant, tp=tp)
                 auxs.append(a)
             aux = {k: torch.stack([a[k] for a in auxs]).mean()
                    for k in auxs[0]}
         elif cfg.family in ("ssm", "hybrid"):
             for i, p in enumerate(layers):
-                x = run(_mamba_layer, p, x, cfg, quant=quant)
+                x = run(_mamba_layer, p, x, cfg, quant=quant, tp=tp)
                 if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
                     x = run(_dense_layer_fwd, params["shared_attn"], x, cfg,
-                            window=0, quant=quant)
+                            window=0, quant=quant, tp=tp)
         else:
             for i, p in enumerate(layers):
                 local = cfg.sliding_window and i % 2 == 0
@@ -388,7 +417,7 @@ class Model(nn.Module):
         (n_layers, B, H, P, N) float32}.  hybrid: {"mamba": those two over
         (n_groups, attn_every), "attn": {"k", "v"} over n_groups}."""
         cfg = self.cfg
-        self._tp(what="init_cache")
+        tp = self._tp()
         kv_dtype = kv_dtype or cfg.dtype
 
         def stacked(lead, one):
@@ -397,11 +426,12 @@ class Model(nn.Module):
 
         def kv(n, s):
             return stacked((n,), init_kv_cache(
-                batch, s, cfg.n_kv_heads, cfg.hd, kv_dtype,
-                device=self.device))
+                batch, s, tp.n_kv, cfg.hd, kv_dtype, device=self.device))
         if cfg.family in ("ssm", "hybrid"):
-            state = init_mamba_state(batch, cfg.d_model, cfg.ssm, cfg.dtype,
-                                     device=self.device)
+            ssm = cfg.ssm
+            state = init_mamba_state(
+                batch, cfg.d_model, ssm, cfg.dtype, device=self.device,
+                n_heads=ssm.expand * cfg.d_model // ssm.head_dim // tp.size)
             if cfg.family == "ssm":
                 return stacked((cfg.n_layers,), state)
             n_groups = cfg.n_layers // cfg.attn_every
@@ -428,7 +458,8 @@ class Model(nn.Module):
         window buffer (``window=0``, ``rolling=True``: the buffer length is
         the window), so valid_from raises there."""
         cfg = self.cfg
-        self._tp(quant, what="decode_step")
+        tp = self._tp()
+        quant = self._quant(quant)
         params = self._weights()
         x = self._embed(params, tokens, None)
 
@@ -440,17 +471,18 @@ class Model(nn.Module):
                 where = (i,) if cfg.family == "ssm" else \
                     divmod(i, cfg.attn_every)
                 x = _mamba_layer(p, x, cfg, quant=quant,
-                                 state=at(mamba, *where))
+                                 state=at(mamba, *where), tp=tp)
                 if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
                     x, _ = _dense_layer_dec(
                         params["shared_attn"], x,
                         at(cache["attn"], i // cfg.attn_every), cache_index,
-                        cfg, window=0, quant=quant, valid_from=valid_from)
+                        cfg, window=0, quant=quant, valid_from=valid_from,
+                        tp=tp)
             return self._logits(params, x), cache
         for i, p in enumerate(params["layers"]):
             if cfg.family == "moe":
                 x = _moe_layer_dec(p, x, at(cache, i), cache_index, cfg,
-                                   quant=quant, valid_from=valid_from)
+                                   quant=quant, valid_from=valid_from, tp=tp)
                 continue
             if cfg.sliding_window:
                 part = "local" if i % 2 == 0 else "global"
@@ -461,7 +493,7 @@ class Model(nn.Module):
                 rolling = False
             x, _ = _dense_layer_dec(p, x, c, cache_index, cfg, window=0,
                                     quant=quant, rolling=rolling,
-                                    valid_from=valid_from)
+                                    valid_from=valid_from, tp=tp)
         return self._logits(params, x), cache
 
     # -------------------------------------------------------------- loss
@@ -473,7 +505,6 @@ class Model(nn.Module):
         only when a forward left ``_last_aux``, which nothing sets, in the
         reference as here: the MoE loss is the plain cross-entropy
         (reference fault 8, ROADMAP C; kept for parity)."""
-        self._tp(quant, what="loss")
         logits, _ = self._forward(params, tokens, frontend_embed,
                                   quant=quant, remat=remat)
         if frontend_embed is not None:
@@ -524,14 +555,16 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"paged decode needs full-context attention — "
                 f"family={cfg.family!r} sliding_window={cfg.sliding_window}")
-        tp = self._tp(quant, what="decode_paged")
+        tp = self._tp()
+        quant = self._quant(quant)
         params = self._weights()
         x = self._embed(params, tokens, None)
         for layer, p in enumerate(params["layers"]):
             ks, vs = (kv_scales[layer] if kv_scales and
                       kv_scales[layer] is not None else (None, None))
             h, _, _ = paged_attention(
-                p["attn"], rms_norm(x, p["ln1"]), kv_pages[layer]["k"],
+                _attn(p["attn"], tp), tp.copy(rms_norm(x, p["ln1"])),
+                kv_pages[layer]["k"],
                 kv_pages[layer]["v"], page_table, lengths,
                 n_heads=tp.n_heads, n_kv=tp.n_kv, hd=cfg.hd,
                 theta=cfg.rope_theta, page_size=page_size,
@@ -542,9 +575,10 @@ class Model(nn.Module):
                 h = rms_norm(h, p["post_ln1"])
             x = x + h
             if cfg.family == "moe":
-                h, _ = _moe_ffn(p, x, cfg, quant)
+                h, _ = _moe_ffn(p, x, cfg, quant, tp)
             else:
-                h = tp.reduce(apply_mlp(p["mlp"], rms_norm(x, p["ln2"]),
+                h = tp.reduce(apply_mlp(p["mlp"],
+                                        tp.copy(rms_norm(x, p["ln2"])),
                                         act=cfg.mlp_act, quant=quant))
             if cfg.post_norms:
                 h = rms_norm(h, p["post_ln2"])

@@ -67,13 +67,19 @@ class AdamW:
                 master=f32, m=tree_map(torch.zeros_like, f32),
                 v=tree_map(torch.zeros_like, f32))
 
-    def update(self, grads: Any, state: AdamWState, params: Any
+    def update(self, grads: Any, state: AdamWState, params: Any, *,
+               gnorm: Optional[torch.Tensor] = None
                ) -> Tuple[Any, AdamWState]:
+        """One step.  ``gnorm``: the global gradient norm, when ``grads``
+        are a rank's blocks of the whole gradient (a sharded train step
+        sums the squares over the ranks); default: the norm of
+        ``grads``.  ``params`` gives the new params' dtypes only."""
         with torch.no_grad():
             g32 = tree_map(lambda g: g.to(torch.float32), grads)
             if self.clip_norm:
-                gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
-                                       for g in leaves(g32)))
+                if gnorm is None:
+                    gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
+                                           for g in leaves(g32)))
                 scale = torch.clamp(
                     self.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
                 g32 = tree_map(lambda g: g * scale, g32)

@@ -10,7 +10,7 @@ the reference's expression for expression (the STE is written
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -47,9 +47,16 @@ def _reduce_axes(x: torch.Tensor, spec: QuantSpec) -> Tuple[int, ...]:
     return tuple(i for i in range(x.dim()) if i != ax)
 
 
-def compute_scale(x: torch.Tensor, spec: QuantSpec,
-                  eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Min/max calibration → (scale, zero_point), broadcastable to x."""
+def compute_scale(x: torch.Tensor, spec: QuantSpec, eps: float = 1e-8,
+                  amax: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                  = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Min/max calibration → (scale, zero_point), broadcastable to x.
+
+    ``amax``, when given, maps each max this rank reduced (and each
+    negated min) to the max over the ranks that hold the rest of the
+    reduced dims (``Layout.max``): the scale of the whole tensor when
+    ``x`` is a rank's block of it."""
+    amax = amax or (lambda t: t)
     if spec.granularity == "per_group":
         ax = spec.channel_axis % x.dim()
         g = spec.group_size
@@ -57,8 +64,8 @@ def compute_scale(x: torch.Tensor, spec: QuantSpec,
         if shp[ax] % g:
             raise ValueError("group_size must divide the channel dim")
         xg = torch.movedim(x, ax, -1).reshape(-1, shp[ax] // g, g)
-        amax = xg.abs().amax(dim=(0, 2), keepdim=True)           # (1, G, 1)
-        s = torch.clamp(amax / spec.qmax, min=eps)
+        top = amax(xg.abs().amax(dim=(0, 2), keepdim=True))      # (1, G, 1)
+        s = torch.clamp(top / spec.qmax, min=eps)
         s = s.expand(1, shp[ax] // g, g).reshape(shp[ax])
         shape = [1] * x.dim()
         shape[ax] = shp[ax]
@@ -66,13 +73,13 @@ def compute_scale(x: torch.Tensor, spec: QuantSpec,
         z = torch.zeros_like(s)
     elif spec.symmetric:
         axes = _reduce_axes(x, spec)
-        amax = x.abs().amax(dim=axes, keepdim=True)
-        s = torch.clamp(amax / spec.qmax, min=eps)
+        top = amax(x.abs().amax(dim=axes, keepdim=True))
+        s = torch.clamp(top / spec.qmax, min=eps)
         z = torch.zeros_like(s)
     else:
         axes = _reduce_axes(x, spec)
-        x_lo = x.amin(dim=axes, keepdim=True)
-        x_hi = x.amax(dim=axes, keepdim=True)
+        x_lo = -amax(-x.amin(dim=axes, keepdim=True))
+        x_hi = amax(x.amax(dim=axes, keepdim=True))
         s = torch.clamp((x_hi - x_lo) / (spec.qmax - spec.qmin), min=eps)
         z = torch.round(spec.qmin - x_lo / s)
     if spec.pot:
@@ -115,9 +122,13 @@ def fake_quant(x: torch.Tensor, scale: torch.Tensor,
     return x_clipped + (y - x_clipped).detach()
 
 
-def fake_quant_dynamic(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
-    """Fake-quant with scales computed on the fly from the current batch."""
-    s, z = compute_scale(x.detach(), spec)
+def fake_quant_dynamic(x: torch.Tensor, spec: QuantSpec,
+                       amax: Optional[Callable[[torch.Tensor],
+                                               torch.Tensor]] = None
+                       ) -> torch.Tensor:
+    """Fake-quant with scales computed on the fly from the current batch
+    (``amax``: as :func:`compute_scale`'s)."""
+    s, z = compute_scale(x.detach(), spec, amax=amax)
     return fake_quant(x, s, z, spec)
 
 

@@ -7,7 +7,8 @@ port has no HLO, so this module counts what the port's model code does:
 * weight products: 2·M·N·K for every product a token makes with a weight
   (the block of it that one device holds under the layout's specs), the
   head's included; MoE experts by their capacity slots, as ``apply_moe``
-  computes them;
+  computes them, as many experts as rank 0 holds (a block of the
+  reference's padded count where "model" does not divide the real one);
 * attention: the S² products, causal (each query sees the keys up to it,
   within a window), 2·2·hd per query-key pair and head;
 * Mamba2's SSD: its four chunk products (``ssd_chunked``);
@@ -134,20 +135,41 @@ def _keys_seen(S: int, window: int) -> int:
 
 
 def local_params(cfg, layout, int8_weights: bool = False):
-    """(this device's block of the shape-only params, the note when the
-    port's own tensor parallelism does not run ``layout``)."""
+    """(the shape-only params, the block of them that rank 0 of
+    ``layout`` holds, the note).
+
+    Experts are split as the port splits them (``shardings
+    .expert_range``): where "model" does not divide the real count,
+    blocks of the reference's padded count (``n_experts_padded /
+    model`` a device, what the reference's spec gives one), whose pads
+    no rank holds, so rank 0 holds the most.  Mamba2 is split by head.
+    The note says where the layout is costed by the specs alone (the
+    port's tensor parallelism refuses it), where the experts follow the
+    padded count, and where the port splits Mamba2 otherwise than the
+    reference's spec."""
     from ..launch.shardings import check_tensor_parallel, shard_params
     from ..models.transformer import Model
     tree = Model(cfg, torch.device("cpu")).init_shapes()
     if int8_weights:
         from ..quant.quantizer import pack_weights_int8
         tree = pack_weights_int8(tree, cfg=cfg)
-    note, tp_cfg = "", cfg
+    notes, tp_cfg, m = [], cfg, layout.size("model")
     try:
         check_tensor_parallel(cfg, layout)
-    except (ValueError, NotImplementedError) as e:
-        note, tp_cfg = f"costed by the specs alone: {e}", None
-    return tree, shard_params(tree, layout, tp_cfg), note
+    except ValueError as e:
+        notes.append(f"costed by the specs alone: {e}")
+        tp_cfg = None
+    E, Ep = cfg.moe.n_experts, cfg.n_experts_padded
+    if tp_cfg is not None and E and E % m:
+        notes.append(f"experts split as blocks of the reference's padded "
+                     f"{Ep}, {Ep // m} a device (the port holds only the "
+                     f"{E} real ones: the last ranks hold fewer)")
+    if tp_cfg is not None and m > 1 and cfg.family in ("ssm", "hybrid"):
+        notes.append("Mamba2 split by head (z, x, dt columns of the "
+                     "rank's heads, B and C whole on every rank), where "
+                     "the reference's spec splits in_proj's packed "
+                     "columns evenly (ROADMAP C)")
+    return tree, shard_params(tree, layout, tp_cfg), "; ".join(notes)
 
 
 def opt_state_bytes(tree, local, layout) -> int:
@@ -241,10 +263,11 @@ def cell_cost(cfg, shape, layout, *, microbatches: int = 8,
         if "moe" in p:
             mm_e, by_e, ew_e = _experts(cfg, p["moe"], b, S_new, a)
             mm, byts, ew = mm + mm_e, byts + by_e, ew + ew_e
-            coll.dispatch(b * S_new * cfg.moe.top_k * d * a)
+            coll.reduce(T * d * a)               # the experts' shares
         if "mamba" in p:
             mm_s, by_s, ew_s = _ssd(cfg, p["mamba"], b, S_new, kind)
             mm, byts, ew = mm + mm_s, byts + by_s, ew + ew_s
+            coll.reduce(T * 4)                   # the norm's sum of squares
             coll.reduce(T * d * a)
     # embedding, final norm, head
     byts += 2 * T * d * a
@@ -394,9 +417,11 @@ def _train_activation_bytes(cfg, local, Tm, V_l, a, remat) -> float:
 class _Colls:
     """The collectives one device's share of a cell makes, by the ring
     rule of ``launch/mesh.py``: an ``all_reduce`` after each row-split
-    product and of the vocab-parallel embedding, an ``all_gather`` of the
-    column-split head, expert dispatch and return (all-to-all) for MoE,
-    and in training the backward's twins plus the gradient
+    product (``wo``, ``w_down``, ``out_proj``, the experts' weighted
+    shares: the port's expert parallelism sums them, where the
+    reference's GSPMD dispatches by all-to-all) and of the vocab-parallel
+    embedding and Mamba2's norm, an ``all_gather`` of the column-split
+    head, and in training the backward's twins plus the gradient
     ``all_reduce`` over the data axes.  Operand bytes of collectives whose
     group spans nodes (``Layout.crosses_nodes``: in the production
     layouts the data axes, never "model") are also summed apart, and those
@@ -428,10 +453,6 @@ class _Colls:
 
     def gather(self, nbytes):
         self._add("all-gather", nbytes, self.m, internode=self.model_inter)
-
-    def dispatch(self, nbytes):
-        self._add("all-to-all", nbytes, self.m, 2,
-                  internode=self.model_inter)
 
     def train(self, grad_bytes):
         for d in (self.counts, self.operand, self.wire):

@@ -51,7 +51,9 @@ stay global.  Every rank runs the same host code on the same requests;
 its greedy picks and Gumbel draws read the logits after the model's
 ``all_gather``, which every rank holds bit for bit, so every rank takes
 the same decisions.  The KV spec is derived from the whole model first.
-Static mode under a layout is not ported (ROADMAP A11b).
+Static mode under a layout serves the sharded model's ``decode_step``
+against its ``init_cache`` (the rank's KV heads, and Mamba2's conv and
+SSD states of its heads), with the same rule for the decisions.
 
 Prefix caching (``ServingConfig(prefix_cache=True)``) makes prefill
 incremental across requests: the engine attaches the longest cached
@@ -202,10 +204,11 @@ class ServingEngine:
             raise ValueError(
                 "prefix_cache requires paged mode (the static engine "
                 "has no page table to share)")
-        if mode == "static" and self.layout is not None:
-            raise NotImplementedError(
-                "static-mode serving under a layout is not ported yet "
-                "(ROADMAP A11b)")
+        if mode == "static" and self.layout is not None and \
+                self.layout.size("model") > 1:
+            # decode_step and init_cache of the sharded model: the rank's
+            # KV heads and Mamba2 states
+            self.model = model.shard(self.layout)
 
         if mode == "paged":
             mcfg = model.cfg

@@ -22,10 +22,15 @@ import torch
 from ..tree import flatten, leaves, tree_map, unflatten
 
 
-def quantize_tensor(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric int8 quantization → (payload, scale)."""
-    amax = torch.max(torch.abs(g))
-    scale = torch.clamp(amax / 127.0, min=1e-12)
+def quantize_tensor(g: torch.Tensor, amax=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 quantization → (payload, scale).
+    ``amax`` maps the local max |g| to the whole tensor's when ``g`` is a
+    rank's block of it (``Layout.max``)."""
+    top = torch.max(torch.abs(g))
+    if amax is not None:
+        top = amax(top)
+    scale = torch.clamp(top / 127.0, min=1e-12)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -34,12 +39,14 @@ def dequantize_tensor(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
-def compress_grads(grads: Any, error_feedback: Any) -> Tuple[Any, Any]:
+def compress_grads(grads: Any, error_feedback: Any, amax=None
+                   ) -> Tuple[Any, Any]:
     """Quantize (grads + carried error) to int8; return (dequantized
-    grads, new error feedback)."""
+    grads, new error feedback).  ``amax``: as :func:`quantize_tensor`'s,
+    for grads that are a rank's blocks."""
     def one(g, e):
         g32 = g.to(torch.float32) + e
-        q, s = quantize_tensor(g32)
+        q, s = quantize_tensor(g32, amax)
         deq = dequantize_tensor(q, s)
         return deq, g32 - deq
 

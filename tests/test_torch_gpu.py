@@ -900,3 +900,38 @@ def test_two_ranks_on_one_card_shard_the_forward(tmp_path):
     assert ranks[0]["prefill"]["digest"] == ranks[1]["prefill"]["digest"]
     assert ranks[0]["serve"]["fp"]["streams"] == \
         ranks[1]["serve"]["fp"]["streams"]
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_one_card_train_split(tmp_path):
+    """Reduced qwen2 trained over two gloo ranks on ``cuda:0``: float32
+    under (1, 2) and (2, 1) with ZeRO, against the whole model's step
+    computed in each rank (losses 1e-5, gradient 1e-4 of each leaf's max,
+    masters 1e-5 of the largest); bf16 under (1, 2) with every rank's
+    backward on the ``tensor_cores`` route, once per layer and
+    microbatch."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from repro_torch.launch.ranks import run_ranks
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    base = dict(arch="qwen2-1.5b", reduced=True, seed=0, batch=[4, 64])
+    ranks = run_ranks(2, dict(
+        layout=[1, 2], device="cuda", pg_timeout=60.0,
+        tasks=["train", "train_timed"],
+        train=dict(base, dtype="float32", steps=2, microbatches=[1, 2],
+                   layouts=[[1, 2], [2, 1]], tol_loss=1e-5, tol_grad=1e-4,
+                   tol_master=1e-5),
+        train_timed=dict(base, dtype="bfloat16", steps=2, microbatches=[2],
+                         layouts=[[1, 2]], oracle=False)), tmp_path,
+        timeout_s=300)
+    for res in ranks:
+        for case in ("1x2_mb1", "1x2_mb2", "2x1_mb1", "2x1_mb2"):
+            cmp, = res["train"][case]["vs"]
+            assert cmp["loss_rel_err"] <= 1e-5 and cmp["grad_err"] <= 1e-4
+        launches = res["train_timed"]["1x2_mb2"]["launches"]
+        for k in ("dkdv", "dq"):
+            assert launches[f"flash_attention_bwd_{k}:tensor_cores"] == \
+                2 * cfg.n_layers
+            assert f"flash_attention_bwd_{k}:cuda_cores" not in launches
+    assert ranks[0]["train"]["2x1_mb2"]["digest"] == \
+        ranks[1]["train"]["2x1_mb2"]["digest"]

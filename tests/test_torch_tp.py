@@ -16,7 +16,10 @@ KV heads, each rank the KV head of its query group):
     whole engine's, on every rank; each rank's pool half the whole
     pool's bytes;
   * ``compressed_psum`` within 2·Σ_r scale_r of the plain sum, and, on one
-    device, equal to the reference's under a one-device ``shard_map``.
+    device, equal to the reference's under a one-device ``shard_map``;
+  * the reduced MoE/SSM/hybrid configs under model = 2 (prefill and
+    decode against the whole model), a fake-quant step's loss and
+    static serving of qwen2 under (1, 2).
 
 The rendezvous is a ``file://`` in ``tmp_path``, the process group's
 timeout 60 s and the ranks' deadline 120 s, so a hang fails the test.
@@ -44,13 +47,28 @@ ARGS = dict(device="cpu", arch=ARCH, reduced=True, seed=0, branch_gain=64.0,
             threads=1, pg_timeout=60.0, tol=1e-5, exact=True)
 
 
+MOE_SSM = ["granite-moe-3b-a800m", "qwen2-moe-a2.7b", "mamba2-780m",
+           "zamba2-2.7b"]
+FAMILY = dict(reduced=True, seed=0, layout=[1, 2], shape=[1, 64], decode=4,
+              tol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     return run_ranks(2, dict(
         ARGS, layout=[1, 2], tasks=["prefill", "decode_paged", "serve",
-                                    "psum"],
+                                    "psum", "moe_prefill", "ssm_prefill",
+                                    "train_quant", "static_serve"],
         variants=["fp", "int8", "prefix", "sampled"],
-        temperatures=[0.0, 1.0, 0.7, 0.0]),
+        temperatures=[0.0, 1.0, 0.7, 0.0],
+        moe_prefill=dict(FAMILY, archs=MOE_SSM[:2]),
+        ssm_prefill=dict(FAMILY, archs=MOE_SSM[2:]),
+        train_quant=dict(arch=ARCH, reduced=True, seed=0, layouts=[[1, 2]],
+                         steps=1, batch=[2, 16], quant_bits=8,
+                         tol_loss=1e-5),
+        static_serve=dict(archs=[ARCH], reduced=True, layout=[1, 2],
+                          requests=[[8, 6], [8, 5]], max_seq=16,
+                          branch_gain=64.0)),
         tmp_path_factory.mktemp("ranks2"), timeout_s=120)
 
 
@@ -165,21 +183,28 @@ def test_compressed_psum_matches_reference_on_one_device():
     assert lay.stats.stats().counts == {}
 
 
-# ----------------------------------------------------------- refusals
+# ------------------------------------------- MoE, Mamba2, what A11 left
 
 def _reduced(arch):
     return get_model(get_config(arch, reduced=True), device="cpu").init(
         torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-moe-a2.7b",
-                                  "mamba2-780m", "zamba2-2.7b"])
-def test_moe_and_ssm_under_a_model_axis_name_a11b(arch):
-    """MoE expert parallelism and Mamba2/Zamba2 tensor parallelism are
-    not ported (ROADMAP A11b); with model = 1 they shard to themselves."""
+@pytest.mark.parametrize("arch", MOE_SSM)
+def test_moe_and_ssm_under_a_model_axis_name_a11b(two_ranks, arch):
+    """MoE expert parallelism and Mamba2/Zamba2 tensor parallelism under
+    model = 2: the prefill (1 x 64) and four decode steps within 1e-5 of
+    the whole model's logit scale, every rank the same logits; with
+    model = 1 they shard to themselves."""
+    key = "moe_prefill" if arch in MOE_SSM[:2] else "ssm_prefill"
+    for res in two_ranks:
+        cmp, = res[key][arch]["vs"]
+        for part in ("logits", "decode"):
+            assert cmp[part]["positions"] == cmp[part]["of"]
+            assert cmp[part]["max_abs_err"] <= \
+                1e-5 * cmp[part]["logit_scale"]
+    assert len({res[key][arch]["digest"] for res in two_ranks}) == 1
     model = _reduced(arch)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        model.shard(t_mesh.make_layout((1, 2)))
     one = model.shard(t_mesh.make_layout((2, 1)))
     toks = torch.randint(0, model.cfg.vocab, (1, 64))
     with torch.inference_mode():
@@ -201,23 +226,24 @@ def test_head_counts_the_axis_does_not_fit_raise():
         odd.shard(t_mesh.make_layout((1, 2)))
 
 
-def test_sharded_model_refuses_what_is_not_sharded():
-    """decode_step, the loss, init_cache and fake-quant under model > 1
-    raise (A11b) before any collective; a static engine under a layout
-    too; a mesh that is not a Layout is refused as in the reference."""
-    model = _reduced(ARCH).shard(t_mesh.make_layout((1, 2)))
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    from repro_torch.quant.quantizer import QuantSpec
-    for call in (lambda: model.decode_step(toks[:, :1], {}, 0),
-                 lambda: model.init_cache(1, 8),
-                 lambda: model.loss(model.param_tree(), toks, toks),
-                 lambda: model(toks, quant=QuantSpec(bits=8))):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            call()
+def test_sharded_model_refuses_what_is_not_sharded(two_ranks):
+    """decode_step, init_cache, the loss and fake-quant run under
+    (1, 2): a fake-quant step's loss within 1e-5 of the whole model's,
+    static streams (decode_step against the split init_cache) equal the
+    whole engine's; a static engine under a one-rank layout serves; a
+    mesh that is not a Layout is refused as in the reference."""
+    for res in two_ranks:
+        q = res["train_quant"]["1x2_mb1"]
+        assert q["vs"][0]["loss_rel_err"] <= 1e-5
+        st = res["static_serve"][ARCH]
+        assert st["streams"] == st["vs"][0]["whole_streams"]
+        assert sum(st["distinct_tokens"]) > len(st["streams"])
     whole = _reduced("mamba2-780m")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        ServingEngine(whole, ServingConfig(
-            batch_slots=1, max_seq=16, mesh=t_mesh.make_layout((1, 1))))
+    eng = ServingEngine(whole, ServingConfig(
+        batch_slots=1, max_seq=16, mesh=t_mesh.make_layout((1, 1))))
+    from repro_torch.serve import Request
+    assert eng.mode == "static" and len(eng.generate([Request(
+        prompt=np.arange(4), max_new_tokens=3)])[0]) == 3
     with pytest.raises(ValueError, match="mesh"):
         ServingConfig(batch_slots=1, max_seq=16, mesh=(1, 2))
     assert dataclasses.replace(ServingConfig(batch_slots=1, max_seq=16),
