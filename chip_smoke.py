@@ -83,24 +83,27 @@ use), then runs twelve phases and prints one JSON object per line:
                both routes, tensor_cores and cuda_cores) at the same
                layer shape beside SDPA's backward
   lm_prefill   the LM slice: qwen2-1.5b at full width (28 layers) with
-               seeded random weights.  float32, B=1, S=1024: logits with
-               the flash-attention kernel against plain attention, and
+               seeded random weights.  float32, B=1, S=1024, at 14 of
+               the 28 layers (the one cut): logits with the
+               flash-attention kernel against plain attention, and
                token-by-token ``decode_step`` against ``forward``; one
                kernel launch per layer.  bfloat16 (the published dtype):
                at B=1, S=2048 the logits through the kernel against a
                float32 forward of the same weights, no further from it
                than 1.5x the logits through the plain attention; ms per
                prefill, tokens/s and peak memory at B=4, S=2048 and B=1,
-               S=32768
+               S=32768, and the B=1, S=32768 prefill profiled once (its
+               kernels, for the launch phase's count)
   lm_families  the MoE, Mamba2 and Zamba2 families at their published
                widths with seeded random weights: granite-moe-3b-a800m,
                qwen2-moe-a2.7b, mamba2-780m and zamba2-2.7b.  float32,
                B=1, S=512 (two SSD chunks), MoE at no-drop capacity:
                logits with the flash-attention kernel against plain
                attention (1e-4 of the logit scale), ``decode_step`` over
-               all 512 positions against ``forward`` (1e-3), 32 / 4 / 0 /
-               9 launches per forward (qwen2-moe at 4 of its 24 layers,
-               the one cut); MoE routing is logged, and a float32 near-tie
+               all 512 positions against ``forward`` (1e-3), 8 / 4 / 0 /
+               3 launches per forward (cut in depth: granite-moe at 8 of
+               its 32 layers, qwen2-moe at 4 of 24, zamba2 at 18 of 54);
+               MoE routing is logged, and a float32 near-tie
                that flips an expert between two runs must be one (margin
                < 1e-5) and ends the positions compared.  One MoE layer
                at capacity 1.25, B=1, S=2048, against the float64
@@ -128,7 +131,7 @@ use), then runs twelve phases and prints one JSON object per line:
                common prefix within 1e-5 of their scale), at least one
                preemption, fewer prefill chunks with the prefix cache.
                bfloat16, 8 slots, max_seq 4096: 16 requests (prompts
-               128-2048, 32-128 new tokens; eight, then eight after 3
+               128-2048, 16-64 new tokens; eight, then eight after 3
                steps) timed with the fp pool, the int8 pool, n-gram
                speculation and a prefix cache (a shared 1024-token
                prefix): the engine's metrics (tokens/s, TTFT p50/p99,
@@ -192,11 +195,19 @@ use), then runs twelve phases and prints one JSON object per line:
                (``launch/dryrun.py``) at layout (1, 1) on the bf16 1 x
                32768 prefill (measured again through its CLI's
                ``--measure``)
-               and on lm_train's step (its numbers, not run again):
-               predicted parameter and optimizer bytes equal to the real
-               ones, predicted and measured peak memory, the roofline's
-               compute and memory seconds, the bound's share of the
-               measured time and the model-FLOP utilisation
+               and on lm_train's step (its numbers, not run again): the
+               count of each program on meta tensors
+               (``roofline/op_cost.py``), whose launches of each
+               hand-written kernel must equal the real call's (28
+               flash_attention a forward; 56 of each backward kernel a
+               step, on tensor_cores) and whose launches of every kind
+               stand beside the profiler's kernels of one call; counted
+               and predicted (``roofline/cost.py``) FLOPs and bytes,
+               each with its roofline; predicted parameter and optimizer
+               bytes equal to the real ones, predicted and measured peak
+               memory, the counted roofline's compute and memory
+               seconds, the bound's share of the measured time and the
+               model-FLOP utilisation
 
 then a ``{"kernels": [...]}`` line (the four TPU kernels' counterparts
 and the backward kernels, dK/dV and dQ once per route; per kernel:
@@ -249,14 +260,18 @@ from repro_torch.dataflow.report import (dataflow_flows,     # noqa: E402
 from repro_torch.kernels import _build, ops as kops          # noqa: E402
 from repro_torch.kernels.int_matmul import (                 # noqa: E402
     CUDA_CORES, ROUTES, TENSOR_CORES, int_matmul as int_matmul_kernel,
-    k_major, route_for)
+    k_major, route_for, work as int_matmul_work)
 from repro_torch.kernels.multithreshold import (             # noqa: E402
-    ROUTES as MT_ROUTES, SEARCH, route_for as mt_route_for)
+    ROUTES as MT_ROUTES, SEARCH, route_for as mt_route_for,
+    work as multithreshold_work)
+from repro_torch.kernels.quantize import (                   # noqa: E402
+    work as quantize_work)
 from repro_torch.kernels.flash_attention import (            # noqa: E402
     BWD_KERNELS, CUDA_CORES, ROUTES as BWD_ROUTES, TENSOR_CORES, bwd_delta,
-    bwd_dkdv, bwd_dq, flash_attention_bwd, flash_attention_fwd,
-    flash_attention_fwd_lse, grad_tolerance, route_for as bwd_route_for,
-    tolerance as fa_tolerance)
+    bwd_dkdv, bwd_dq, bwd_work as flash_bwd_work, flash_attention_bwd,
+    flash_attention_fwd, flash_attention_fwd_lse, grad_tolerance,
+    route_for as bwd_route_for, tolerance as fa_tolerance,
+    work as flash_work)
 from repro_torch.kernels.ref import (                         # noqa: E402
     DEAD_LSE, flash_attention_bwd_magnitudes, flash_attention_bwd_ref,
     flash_attention_lse_ref, flash_attention_ref)
@@ -300,8 +315,12 @@ LM_ARCH = "qwen2-1.5b"
 LM_SEED = 0
 FA_LAYER = dict(B=1, S=4096, H=12, KV=2, hd=128)
 LM_F32 = (1, 1024)                        # (B, S) of the float32 checks
+# their depth: 14 of the 28 layers (the token-by-token decode over 1024
+# positions took 56 s at full depth on one H100 80GB HBM3's host, 700 W)
+LM_F32_LAYERS = 14
 LM_BF16_CHECK = (1, 2048)                 # (B, S) of the bfloat16 check
 LM_BF16 = ((4, 2048, 3), (1, 32768, 2))   # (B, S, timed calls), bfloat16
+LM_PROFILED = (1, 32768)    # the bf16 prefill also profiled once (launch)
 
 # the lm_families slice: the MoE, Mamba2 and Zamba2 configs at their
 # published widths, and the flash_attention launches of one forward
@@ -318,9 +337,13 @@ FAMILY_WIDTHS = {
                         n_kv_heads=32, vocab=32000, ssm=(64, 64, 2),
                         attn_every=6, launches=9),
 }
-# the one cut: qwen2-moe's float32 checks run at 4 of its 24 layers (a
-# float32 copy of all 24 next to the bf16 weights would take ~86 GB)
-FAMILY_F32_LAYERS = {"qwen2-moe-a2.7b": 4}
+# the float32 checks' depth cuts: qwen2-moe at 4 of its 24 layers (a
+# float32 copy of all 24 next to the bf16 weights would take ~86 GB);
+# granite-moe at 8 of 32 and zamba2 at 18 of 54 (three shared-attention
+# groups), whose token-by-token decode over 512 positions took 63 s and
+# 37 s at full depth (one H100 80GB HBM3's host, 700 W)
+FAMILY_F32_LAYERS = {"qwen2-moe-a2.7b": 4, "granite-moe-3b-a800m": 8,
+                     "zamba2-2.7b": 18}
 FAMILY_F32 = (1, 512)          # (B, S): two 256-token SSD chunks
 FAMILY_ORACLE = (1, 2048)      # (B, S) of the MoE dispatch check
 FAMILY_BF16 = (4, 2048, 3)     # (B, S, timed calls), bfloat16
@@ -884,10 +907,10 @@ def time_int_matmul(rng, m, k, n, dt, acc_bits, fused, per_batch=None
                             wrapper_ms=time_ms(kernel, 10))
     plain = time_ms(lambda: kops.int_matmul(x, w, s, b, use_kernel=False,
                                             **kw), 3, warmup=1)
-    size = np.dtype(dt).itemsize
-    b_ms, by = bound(m * k * size + k * n * size + m * n * 4
-                     + (8 * n if fused else 0), 2.0 * m * k * n,
-                     INT8_OPS_PER_S if size == 1 else ALU_OPS_PER_S)
+    ops, nbytes = int_matmul_work(m, k, n, tdt, kw["out_dtype"],
+                                  scale=fused, bias=fused)
+    b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S if tdt == torch.int8
+                     else ALU_OPS_PER_S)
     lib = None
     if tdt == torch.int8 and k % 8 == 0 and n % 8 == 0 and m > 16:
         # timed here only; the port never calls it
@@ -936,12 +959,16 @@ def stage_sweep(rng, m, k, n, stages) -> dict:
 
 
 def mt_bound(m, c, n, dt):
-    """Bytes (x and T read once, an int32 out written once) against the
-    compares of a search, M*C*ceil(log2(N + 1)): the least work of the
-    function, not the M*C*N of a linear count."""
-    size = np.dtype(dt).itemsize
-    return bound(m * c * size + n * c * size + m * c * 4,
-                 float(m) * c * int(n).bit_length(), ALU_OPS_PER_S)
+    """The kernel's work (``kernels/multithreshold.py work``: x and T read
+    once, an int32 out written once, against the compares of a search,
+    M*C*ceil(log2(N + 1))) at the card's peaks."""
+    ops, nbytes = multithreshold_work(m, c, n, torch_dtype(dt), torch.int32)
+    return bound(nbytes, ops, ALU_OPS_PER_S)
+
+
+def torch_dtype(dt) -> torch.dtype:
+    """The torch type of numpy type ``dt``."""
+    return torch.from_numpy(np.zeros(0, dtype=dt)).dtype
 
 
 def mt_inputs(rng, m, c, n, dt):
@@ -1007,10 +1034,9 @@ def time_quantize(rng, m, c, dt) -> dict:
     ms = device_ms(kernel, GRAPH_LAUNCHES)
     plain = time_ms(lambda: kops.quantize(x, s, z, use_kernel=False, **kw),
                     20)
-    size = np.dtype(dt).itemsize
-    # divide, add, round, two clamps per element
-    b_ms, by = bound(m * c * size + 8 + m * c * 4, 5.0 * m * c,
-                     ALU_OPS_PER_S)
+    # divide, add, round, two clamps per element (kernels/quantize.py)
+    ops, nbytes = quantize_work(m, c, x.dtype, torch.int32, 1)
+    b_ms, by = bound(nbytes, ops, ALU_OPS_PER_S)
     # no single PyTorch call computes it: torch.quantize_per_tensor
     # multiplies by a reciprocal and adds the zero point after rounding
     return dict(shape=f"{np.dtype(dt).name} {m}x{c}", ms=ms,
@@ -1041,12 +1067,10 @@ def time_flash_attention(dt) -> dict:
     plain = time_ms(lambda: flash_attention_ref(q, k, v), 3, warmup=1)
     lib = time_ms(library, 10)
     lib_diff = float((library().double() - kernel().double()).abs().max())
-    size = q.element_size()
     # the causal mask keeps S(S+1)/2 query-key pairs: the work these
-    # inputs need
-    ops = 4.0 * B * H * hd * (S * (S + 1) // 2)
-    b_ms, by = bound((2 * q.numel() + k.numel() + v.numel()) * size, ops,
-                     ALU_OPS_PER_S if dt == torch.float32
+    # inputs need (kernels/flash_attention.py work)
+    ops, nbytes = flash_work(q.shape, k.shape, dt, causal=True)
+    b_ms, by = bound(nbytes, ops, ALU_OPS_PER_S if dt == torch.float32
                      else BF16_OPS_PER_S)
     return dict(shape=f"{str(dt)[6:]} B{B} S{S} H{H} KV{KV} hd{hd} causal",
                 ms=ms, tflops=ops / ms / 1e9, ms_with_lse=ms_lse,
@@ -1097,23 +1121,19 @@ def time_flash_attention_bwd(dt) -> dict:
         return torch.autograd.grad(lib_out, (qt, kt, vt), lib_grad,
                                    retain_graph=True)
     lib_ms = time_ms(library, 5)
-    size = q.element_size()
-    n = q.numel()
-    fwd_ops = 4.0 * B * H * hd * (S * (S + 1) // 2)
+    fwd_ops, _ = flash_work(q.shape, k.shape, dt, causal=True)
     peak = ALU_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
-    # bytes: each input read once, each output written once; operations:
-    # of the backward's five products of the forward's size, dK/dV makes
-    # S, dP, dV and dK (2x the forward's), dQ makes dQ (0.5x)
-    work = {BWD_KERNELS[0]: (2 * n * size + 4 * B * H * S, 0),
-            BWD_KERNELS[1]: ((2 * n + 2 * k.numel()) * size + 8 * B * H * S
-                             + 2 * k.numel() * size, 2.0 * fwd_ops),
-            BWD_KERNELS[2]: ((2 * n + 2 * k.numel()) * size + 8 * B * H * S
-                             + n * size, 0.5 * fwd_ops)}
+    # kernels/flash_attention.py bwd_work: each input read once, each
+    # output written once; dK/dV makes S, dP, dV and dK (2x the forward's
+    # products), dQ makes S, dP and dQ (1.5x)
+    work = {name: flash_bwd_work(name, q.shape, k.shape, dt, causal=True)
+            for name in BWD_KERNELS}
     rows = {}
     for name, fn in fns.items():
         base = name.split(":")[0]
         ms = device_ms(fn, GRAPH_LAUNCHES)
-        b_ms, by = bound(*work[base], peak)
+        ops, nbytes = work[base]
+        b_ms, by = bound(nbytes, ops, peak)
         rows[name] = dict(
             shape=f"{str(dt)[6:]} B{B} S{S} H{H} KV{KV} hd{hd} causal",
             ms=ms, wrapper_ms=time_ms(fn, 3),
@@ -1130,12 +1150,23 @@ def time_flash_attention_bwd(dt) -> dict:
         prof = device_profile(fns[f"{BWD_KERNELS[1]}:{TENSOR_CORES}"])
         split = {kname[:80]: ms for kname, (ms, _) in
                  prof["by_kernel"].items() if "flash_bwd_dkdv" in kname}
-    b_total, _ = bound(0, 2.5 * fwd_ops, peak)
+    # the whole backward at its least work, whatever its kernels: the
+    # five products of the forward's size but S, made once (2.5x the
+    # forward's); q, k, v, out, dO and the log-sum-exp read once, dq, dk
+    # and dv written once.  The kernels' own bounds add up to more: dQ
+    # makes S and dP again (3.5x in all)
+    n, nk = q.numel(), k.numel()
+    b_total, b_total_by = bound((4 * n + 4 * nk) * q.element_size()
+                                + 4 * B * H * S, 2.5 * fwd_ops, peak)
     return dict(dtype=str(dt)[6:], kernels=rows, backward_ms=by_route,
                 backward_tflops={r: 2.5 * fwd_ops / t / 1e9
                                  for r, t in by_route.items()},
                 dkdv_tensor_cores_split_ms=split,
-                backward_bound_ms=b_total, library_backward_ms=lib_ms,
+                backward_bound_ms=b_total, backward_bound_by=b_total_by,
+                kernels_bound_ms={r: rows[BWD_KERNELS[0]]["bound_ms"] + sum(
+                    rows[f"{n}:{r}"]["bound_ms"] for n in BWD_KERNELS[1:])
+                    for r in by_route},
+                library_backward_ms=lib_ms,
                 library_tflops=2.5 * fwd_ops / lib_ms / 1e9,
                 plain_backward_ms=plain_bwd,
                 library="F.scaled_dot_product_attention(is_causal=True, "
@@ -1143,7 +1174,10 @@ def time_flash_attention_bwd(dt) -> dict:
                         "torch.autograd.grad",
                 note="library_ms of dkdv and dq: SDPA's whole backward; "
                      "plain_ms of dkdv and dq: the whole plain backward; "
-                     "backward_ms: D + dK/dV + dQ per route; "
+                     "backward_ms: D + dK/dV + dQ per route, beside "
+                     "backward_bound_ms (the whole backward's least "
+                     "work, 2.5x the forward's products) and "
+                     "kernels_bound_ms (the sum of the kernels' bounds); "
                      "dkdv_tensor_cores_split_ms: one profiled call")
 
 
@@ -1998,21 +2032,32 @@ def lm_bf16_run(model, cfg, B, S, reps) -> dict:
         model(toks)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / reps * 1e3
-    return dict(dtype="bfloat16", B=B, S=S, ms_per_prefill=ms,
-                tokens_per_s=B * S / ms * 1e3, reps=reps,
-                launches_per_forward=launches,
-                memory_allocated_before=resident, max_memory_allocated=peak)
+    out = dict(dtype="bfloat16", B=B, S=S, ms_per_prefill=ms,
+               tokens_per_s=B * S / ms * 1e3, reps=reps,
+               launches_per_forward=launches,
+               memory_allocated_before=resident, max_memory_allocated=peak)
+    if cfg.name == LM_ARCH and (B, S) == LM_PROFILED:
+        # the kernels the profiler sees in one call, which the launch
+        # phase sets beside the dry run's count of the same program
+        prof = device_profile(lambda: model(toks))
+        out["profile"] = dict(kernels=prof["kernels"],
+                              wall_ms=prof["wall_ms"],
+                              device_busy_ms=prof["device_busy_ms"],
+                              idle_share=prof["idle_share"])
+    return out
 
 
 def float32_model(arch: str):
     """The float32 model of ``arch``'s checks: qwen2-1.5b drawn in float32
-    (``lm_prefill``), a family a float32 copy of its seeded bf16 weights,
-    cut to ``FAMILY_F32_LAYERS`` (drawing the cut model draws the same
-    first layers: the init draws the embedding and head, then the layers
-    in order), MoE at no-drop capacity (``lm_families``)."""
+    at ``LM_F32_LAYERS`` of its layers (``lm_prefill``), a family a
+    float32 copy of its seeded bf16 weights, cut to ``FAMILY_F32_LAYERS``
+    (drawing the cut model draws the same first layers: the init draws
+    the embedding and head, then the layers in order), MoE at no-drop
+    capacity (``lm_families``)."""
     cfg = get_config(arch)
     if arch == LM_ARCH:
-        return lm_model(dataclasses.replace(cfg, dtype=torch.float32))
+        return lm_model(dataclasses.replace(cfg, dtype=torch.float32,
+                                            n_layers=LM_F32_LAYERS))
     cfg_cut = dataclasses.replace(
         cfg, n_layers=FAMILY_F32_LAYERS.get(arch, cfg.n_layers))
     p32 = lm_model(cfg_cut).params.to(torch.float32)
@@ -2245,14 +2290,19 @@ SERVE_PREFIX = 256
 SERVE_PREFIX_REQS = ((200, 24), (40, 16), (120, 32), (8, 20), (256, 28),
                      (64, 16))
 # static mode: (arch, requests, prompt, new tokens, layers), float32; the
-# one cut: 12 of mamba2's 48 layers (its host-bound decode step, ~48 ms at
-# full depth, would take ~120 s over the batched and the four solo runs)
-SERVE_STATIC = ("mamba2-780m", 4, 512, 32, 12)
-# bf16 serving, timed: 16 requests (prompt 128-2048, 32-128 new tokens),
-# eight first and eight after 3 steps; the prefix variant's shared prefix
+# one cut: 6 of mamba2's 48 layers (its host-bound decode step, ~48 ms at
+# full depth, would take ~120 s over the batched and the four solo runs;
+# 12 layers took 34 s on one H100 80GB HBM3's host, 700 W)
+SERVE_STATIC = ("mamba2-780m", 4, 512, 32, 6)
+# bf16 serving, timed: 16 requests (prompt 128-2048, 16-64 new tokens:
+# cut from 32-128, whose four variants took 95 s on one H100 80GB HBM3's
+# host, 700 W; a cut in depth would change the decode step that is
+# timed, fewer tokens only how many such steps there are), eight first
+# and eight after 3 steps; the prefix variant's shared prefix
 SERVE_BF16 = dict(batch_slots=8, max_seq=4096, prefill_chunk=SERVE_CHUNK,
                   page_size=SERVE_PAGE)
 SERVE_BF16_N = 16
+SERVE_BF16_NEW = (16, 65)     # new tokens a request: [low, high)
 SERVE_BF16_PREFIX = 1024
 # two top logits closer than this (of the logit scale) are a tie to
 # float32 rounding: the one divergence allowed between two streams
@@ -2677,11 +2727,12 @@ def serve_bf16(model, spec_i8) -> dict:
     ones, and one decode step profiled."""
     rng = np.random.default_rng(LM_SEED + 5)
     lens = list(zip(rng.integers(128, 2049, SERVE_BF16_N),
-                    rng.integers(32, 129, SERVE_BF16_N)))
+                    rng.integers(*SERVE_BF16_NEW, SERVE_BF16_N)))
     V = model.cfg.vocab
     reqs = serve_requests(V, lens, LM_SEED + 7)
     pre = serve_requests(V, list(zip(rng.integers(64, 1025, SERVE_BF16_N),
-                                     rng.integers(32, 129, SERVE_BF16_N))),
+                                     rng.integers(*SERVE_BF16_NEW,
+                                                  SERVE_BF16_N))),
                          LM_SEED + 8, SERVE_BF16_PREFIX)
     half = SERVE_BF16_N // 2
     serve_timed(model, "fp", {}, serve_requests(V, ((300, 8), (40, 8)),
@@ -3399,7 +3450,7 @@ LAUNCH_MOE = dict(archs=["granite-moe-3b-a800m", "qwen2-moe-a2.7b"],
                   seed=LM_SEED, shape=[1, 512], decode=8, layout=[1, 2],
                   tol=LAUNCH_FAMILY_TOL, tie=ROUTING_TIE)
 LAUNCH_SSM = dict(LAUNCH_MOE, archs=["mamba2-780m", "zamba2-2.7b"])
-# serve's static mamba2 (12 of 48 layers, 4 requests, 32 new tokens) with
+# serve's static mamba2 (6 of 48 layers, 4 requests, 32 new tokens) with
 # prompts of 128, not 512: static mode prefills token by token, and 544
 # split steps took 36 s (one H100 80GB HBM3, 700 W)
 LAUNCH_STATIC = dict(archs=[SERVE_STATIC[0]], layers=SERVE_STATIC[4],
@@ -3493,10 +3544,10 @@ def launch_split(work: pathlib.Path, oracle: Procs) -> dict:
                     check(c["max_abs_err"] <= LAUNCH_FAMILY_TOL *
                           c["logit_scale"], f"rank {r} {arch} {part}: {c}")
                 fcfg = get_config(arch)
-                n_attn = fcfg.n_layers // fcfg.attn_every \
+                depth = LAUNCH_MOE["layers"].get(arch, fcfg.n_layers)
+                n_attn = depth // fcfg.attn_every \
                     if fcfg.family == "hybrid" else \
-                    (0 if fcfg.family == "ssm" else
-                     LAUNCH_MOE["layers"].get(arch, fcfg.n_layers))
+                    (0 if fcfg.family == "ssm" else depth)
                 check(run["flash_launches"] == n_attn,
                       f"rank {r} {arch}: {run['flash_launches']} "
                       f"flash_attention launches per forward, not {n_attn}")
@@ -3552,27 +3603,36 @@ def launch_split(work: pathlib.Path, oracle: Procs) -> dict:
         rank_seconds=[res["seconds"] for res in ranks])
 
 
-def launch_roofline(train: dict) -> dict:
-    """(d) ``dryrun``'s prediction at layout (1, 1) against measurement:
-    the bf16 1 x 32768 prefill through the dry run's CLI with
-    ``--measure`` (the normal entry point, ``Model.forward``), and
+def launch_roofline(card: str, train: dict, lm: dict) -> dict:
+    """(d) the dry run's count (``roofline/op_cost.py``) and its
+    prediction (``roofline/cost.py``) at layout (1, 1) against
+    measurement: the bf16 1 x 32768 prefill through the dry run's CLI
+    with ``--measure`` (the normal entry point, ``Model.forward``), and
     lm_train's step from lm_train's own numbers (not run again).
-    Parameter and optimizer bytes must equal the real tensors'."""
+    Parameter and optimizer bytes must equal the real tensors', and the
+    count's launches of each hand-written kernel the real call's; the
+    count's launches of every kind stand beside the profiler's kernels
+    of one such call (lm_prefill's and lm_train's profiles), and the
+    counted and predicted FLOPs and bytes beside each other with the
+    roofline of each."""
     one = make_layout((1, 1))
     with tempfile.TemporaryDirectory() as tmp, \
             contextlib.redirect_stdout(io.StringIO()) as cli:
         pre, = lm_dryrun.main(LAUNCH_PREFILL_ARGV + ["--out", tmp])
-    check(pre.ok and pre.measured,
+    check(pre.ok and pre.measured and pre.counted,
           f"dry run of the prefill cell: {cli.getvalue()[-600:]}")
     t = train["train"]
     step = lm_dryrun.run_cell(LM_ARCH, LAUNCH_TRAIN_CELL.name, layout=one,
                               shape=LAUNCH_TRAIN_CELL,
                               microbatches=LM_TRAIN["microbatches"],
                               remat=False)
-    check(step.ok, f"dry run of the train cell: {step.reason[-300:]}")
+    check(step.ok and step.counted,
+          f"dry run of the train cell: {step.reason[-300:]}")
     lm_dryrun.compare(step, dict(
         seconds=t["ms_per_step"] / 1e3, peak_bytes=t["max_memory_allocated"],
         what="lm_train's ms per step (median after the warm steps)",
+        kernel_launches={k: v / t["steps"] for k, v in t["launches"].items()
+                         if v},
         **t["state_bytes"]))
     check(pre.measured["param_bytes_equal"], "prefill: predicted parameter "
           f"bytes {pre.memory['param_bytes']} != "
@@ -3582,14 +3642,44 @@ def launch_roofline(train: dict) -> dict:
           f"train: predicted {step.memory['param_bytes']} / "
           f"{step.memory['opt_bytes']} bytes, real "
           f"{step.measured['param_bytes']} / {step.measured['opt_bytes']}")
-    out = {c.shape: dict(cost=c.cost, memory=c.memory,
-                         roofline=c.roofline, measured=c.measured)
-           for c in (pre, step)}
+    for c in (pre, step):
+        check(c.measured["kernel_launches_equal"],
+              f"{c.shape}: the count's kernel launches "
+              f"{c.kernel_launches} != the real call's "
+              f"{c.measured['kernel_launches']}")
+    profiled = next(r["profile"] for r in lm["runs"]
+                    if (r.get("B"), r.get("S")) == LM_PROFILED)
+    out = {}
+    for c, prof in ((pre, profiled), (step, t["profile"])):
+        out[c.shape] = dict(
+            card=card, cost=c.cost, memory=c.memory, roofline=c.roofline,
+            measured=c.measured,
+            launches=dict(counted=c.cost["launches"],
+                          profiled_kernels=prof["kernels"],
+                          counted_kernels=c.kernel_launches,
+                          real_kernels=c.measured["kernel_launches"]),
+            counted_vs_predicted=dict(
+                flops=(c.cost["flops"], c.predicted["cost"]["flops"]),
+                bytes=(c.cost["bytes accessed"],
+                       c.predicted["cost"]["bytes accessed"]),
+                ratio=c.predicted["ratio"],
+                bound_s=(max(c.roofline[k] for k in ROOF_TERMS),
+                         max(c.predicted["roofline"][k]
+                             for k in ROOF_TERMS)),
+                bottleneck=(c.roofline["bottleneck"],
+                            c.predicted["roofline"]["bottleneck"])),
+            top_ops=sorted(((k, v["launches"], v["bytes"])
+                            for k, v in c.by_op.items()),
+                           key=lambda r: -r[1])[:10])
     out[pre.shape]["cli"] = " ".join(LAUNCH_PREFILL_ARGV)
     return out
 
 
-def phase_launch(card: str, train: dict) -> dict:
+#: the roofline's three time terms
+ROOF_TERMS = ("compute_s", "memory_s", "collective_s")
+
+
+def phase_launch(card: str, train: dict, lm: dict) -> dict:
     t_phase = time.perf_counter()
     gc.collect()                      # the earlier phases' models
     torch.cuda.empty_cache()
@@ -3614,7 +3704,7 @@ def phase_launch(card: str, train: dict) -> dict:
         finally:
             oracle.stop()
     t0 = time.perf_counter()
-    roof = launch_roofline(train)
+    roof = launch_roofline(card, train, lm)
     roof["seconds"] = parts_s["d"] = time.perf_counter() - t0
     launches = dict(split["launches"])
     launches["flash_attention"] += _build.LAUNCH_COUNTS["flash_attention"] \
@@ -3629,7 +3719,11 @@ def phase_launch(card: str, train: dict) -> dict:
                      "streams vs the whole engine with the near-tie rule; "
                      "(c) compressed_psum: the summed payloads are int32, "
                      "as in the reference, so they move as many bytes as "
-                     "float32; (d) mfu: model FLOPs / (measured s x 989e12); "
+                     "float32; (d) the dry run's count (launches of every "
+                     "kind beside the profiler's kernels of one call; the "
+                     "hand-written kernels' launches equal the real "
+                     "call's) and its prediction, each with its roofline; "
+                     "mfu: model FLOPs / (measured s x 989e12); "
                      "(e) training split: tensor (1, 2), data + ZeRO (2, 1), "
                      "float32 against the whole model's step, bf16 timed; "
                      "(f) fake-quant; (g) MoE expert parallel; (h) Mamba2 "
@@ -3695,7 +3789,7 @@ def main() -> None:
           f"serve: launches {serve['launches']}")
     train = phase_lm_train(env["nvidia_smi"])
     emit(train)
-    launch = phase_launch(env["nvidia_smi"], train)
+    launch = phase_launch(env["nvidia_smi"], train, lm)
     emit(launch)
     phases = dict(main_path=main_path, sira_flow=sira, qat_chain=qat,
                   lm_prefill=lm, lm_families=fam, serve=serve,

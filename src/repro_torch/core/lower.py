@@ -854,7 +854,8 @@ def lower(model: SiraModel, *, device=None, dtype=torch.float32,
                         f"got {dtype}")
     if use_kernel is None:
         use_kernel = dev.type == "cuda"
-    elif use_kernel and dev.type != "cuda":
+    elif use_kernel and dev.type not in ("cuda", "meta"):
+        # meta: a model counted without a card (roofline/op_cost.py)
         raise RuntimeError(
             f"use_kernel=True needs a CUDA device, got device={str(dev)!r}")
     if fuse_epilogue is None:

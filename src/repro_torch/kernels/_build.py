@@ -9,6 +9,11 @@ the sources, the headers they include and the flags, so an unchanged tree
 reuses its build and a changed source or header never loads a stale one.
 A build failure raises with the compiler's output; nothing falls back to
 the plain versions.
+
+Under a count (``roofline/op_cost.py analyze_program``) the wrappers take
+their card path for ``meta`` tensors (:func:`on_card`) and stop at their
+launch sites (:func:`counted`): they record their kernel's work and
+return their outputs, and nothing is built or launched.
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("int_matmul.cu", "multithreshold.cu", "quantize.cu",
@@ -36,6 +43,11 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: wrapper adds one where it launches its kernel and nowhere else
 LAUNCH_COUNTS: Dict[str, int] = collections.Counter()
 
+#: while a count runs (``roofline/op_cost.py analyze_program`` sets it),
+#: what records a kernel's launch: ``recorder(name, flops, bytes, *,
+#: route, call)``; None otherwise
+recorder: Optional[Callable[..., None]] = None
+
 _lib: Optional[ctypes.CDLL] = None
 #: wall seconds the last real build took (0.0 when a cached library loaded)
 build_seconds: float = 0.0
@@ -43,6 +55,37 @@ build_seconds: float = 0.0
 
 def reset_launch_counts() -> None:
     LAUNCH_COUNTS.clear()
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper takes its card path for ``t``: a CUDA tensor,
+    or a ``meta`` tensor under a count.  A ``meta`` tensor outside a
+    count raises: it has no data to compute on."""
+    if t.is_cuda:
+        return True
+    if t.is_meta:
+        if recorder is None:
+            raise RuntimeError(
+                "a meta tensor reached a CUDA kernel's wrapper outside a "
+                "count (roofline/op_cost.py analyze_program): it has no "
+                "data to compute on")
+        return True
+    return False
+
+
+def counted(name: str, work: Callable[[], Tuple[float, float]],
+            t: torch.Tensor, route: Optional[str] = None,
+            call: bool = True) -> bool:
+    """At a wrapper's launch site: under a count (``t`` a ``meta``
+    tensor), record one launch of kernel ``name`` doing ``work()``
+    ((FLOPs, HBM bytes), from the kernel's ``work`` function; called
+    only here) and return True, and the wrapper returns its outputs
+    unlaunched; False otherwise.  ``call=False``: a further kernel of
+    the same call, which :data:`LAUNCH_COUNTS` does not count apart."""
+    if not t.is_meta:
+        return False
+    recorder(name, *work(), route=route, call=call)
+    return True
 
 
 def build_dir() -> pathlib.Path:

@@ -29,6 +29,8 @@ bounds them against it.  dK/dV and dQ have two routes, which
 """
 from __future__ import annotations
 
+from typing import Sequence, Tuple
+
 import torch
 
 from . import _build
@@ -64,6 +66,70 @@ def route_for(dtype: torch.dtype, hd: int) -> str:
     if dtype in P_ROUNDING and hd <= TC_BWD_MAX_HEAD_DIM:
         return TENSOR_CORES
     return CUDA_CORES
+
+
+def visible_pairs(Sq: int, Sk: int, *, causal: bool = True,
+                  window: int = 0, q_offset: int = 0) -> int:
+    """Query-key pairs the kernels compute: query i sits at position
+    ``q_offset + i`` and sees keys at or before it (``causal``) and less
+    than ``window`` behind it (``window > 0``), among the ``Sk`` keys."""
+    q0, q1, w = int(q_offset), int(q_offset) + int(Sq), int(window)
+
+    def seen(p):                     # keys the query at position p sees
+        hi = min(p, Sk - 1) if causal else Sk - 1
+        lo = max(p - w + 1, 0) if w else 0
+        return max(hi - lo + 1, 0)
+    # seen is linear between its kinks (0, Sk, w) and its last zero
+    # (Sk + w - 1): each stretch sums as an arithmetic series
+    cuts = sorted({q0, q1} | {c for c in (0, Sk, w, Sk + w - 1)
+                              if q0 < c < q1})
+    return sum((seen(a) + seen(b - 1)) * (b - a) // 2
+               for a, b in zip(cuts, cuts[1:]))
+
+
+def _sizes(q_shape: Sequence[int], k_shape: Sequence[int], dtype):
+    B, Sq, H, hd = q_shape
+    Sk, KV = k_shape[1], k_shape[2]
+    size = dtype.itemsize
+    return B, Sq, H, hd, Sk, KV, size
+
+
+def work(q_shape: Sequence[int], k_shape: Sequence[int], dtype, *,
+         causal: bool = True, window: int = 0, q_offset: int = 0,
+         lse: bool = False) -> Tuple[float, float]:
+    """(operations, HBM bytes) of one forward launch: the two products
+    over the pairs :func:`visible_pairs` counts, 4·B·H·hd a pair; q, k, v
+    read once, out (and the float32 log-sum-exp, ``lse``) written once,
+    no S² traffic.  What a count records for a launch and what
+    ``chip_smoke.py`` bounds the kernel's time by."""
+    B, Sq, H, hd, Sk, KV, size = _sizes(q_shape, k_shape, dtype)
+    pairs = visible_pairs(Sq, Sk, causal=causal, window=window,
+                          q_offset=q_offset)
+    nbytes = (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) * size
+    return 4.0 * B * H * hd * pairs, float(nbytes + (4 * B * H * Sq
+                                                      if lse else 0))
+
+
+def bwd_work(kernel: str, q_shape: Sequence[int], k_shape: Sequence[int],
+             dtype, *, causal: bool = True, window: int = 0,
+             q_offset: int = 0) -> Tuple[float, float]:
+    """(operations, HBM bytes) of one launch of a backward kernel
+    (:data:`BWD_KERNELS`): D = rowsum(dO·out) reads out and dO and writes
+    D; dK/dV computes four products of the forward's size (S, dP, dV, dK)
+    and dQ three (S, dP, dQ), each reading q, k, v, dO, the log-sum-exp
+    and D once and writing its gradients once."""
+    B, Sq, H, hd, Sk, KV, size = _sizes(q_shape, k_shape, dtype)
+    n, nk = B * Sq * H * hd, B * Sk * KV * hd
+    if kernel == BWD_KERNELS[0]:
+        return 2.0 * n, float(2 * n * size + 4 * B * H * Sq)
+    half = 2.0 * B * H * hd * visible_pairs(
+        Sq, Sk, causal=causal, window=window, q_offset=q_offset)
+    reads = (2 * n + 2 * nk) * size + 8 * B * H * Sq
+    if kernel == BWD_KERNELS[1]:
+        return 4.0 * half, float(reads + 2 * nk * size)
+    if kernel == BWD_KERNELS[2]:
+        return 3.0 * half, float(reads + n * size)
+    raise ValueError(f"bwd_work: {kernel!r} is not one of {BWD_KERNELS}")
 
 
 def ulp(x: torch.Tensor) -> torch.Tensor:
@@ -152,7 +218,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: no keys (Sk = 0)")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel: head dim {hd} > "
@@ -180,6 +246,10 @@ def _forward_kernel(q, k, v, causal, window, q_offset, logit_cap,
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
+    if _build.counted("flash_attention", lambda: work(
+            q.shape, k.shape, q.dtype, causal=causal, window=window,
+            q_offset=q_offset, lse=with_lse), q):
+        return out, lse
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.sira_flash_attention(
@@ -208,7 +278,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     goes through :class:`FlashAttention` (the backward kernels)."""
     window, q_offset = int(window), int(q_offset)
     _check(q, k, v, window)
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, logit_cap=logit_cap)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -233,7 +303,7 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
     _check(q, k, v, window)
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               logit_cap=logit_cap)
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return (flash_attention_ref(q, k, v, **kw),
                 flash_attention_lse_ref(q, k, **kw))
     if q.shape[0] * q.shape[1] * q.shape[2] == 0:
@@ -257,6 +327,10 @@ def bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     dout contiguous CUDA tensors (B, Sq, H, hd) of one type."""
     B, Sq, H, hd = out.shape
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=out.device)
+    if _build.counted("flash_attention_bwd_delta", lambda: bwd_work(
+            "flash_attention_bwd_delta", out.shape, out.shape, out.dtype),
+            out):
+        return delta
     with torch.cuda.device(out.device):
         err = _build.load().sira_flash_bwd_delta(
             out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B, Sq, H, hd,
@@ -287,6 +361,12 @@ def _count(name, route):
     _build.LAUNCH_COUNTS[f"{name}:{route}"] += 1
 
 
+def _bwd_counted(name, q, k, causal, window, q_offset, route) -> bool:
+    return _build.counted(name, lambda: bwd_work(
+        name, q.shape, k.shape, q.dtype, causal=causal, window=window,
+        q_offset=q_offset), q, route)
+
+
 def bwd_dkdv(q, k, v, dout, lse, delta, *, causal, window, q_offset,
              logit_cap, route=None):
     """Kernel (b): → (dk, dv) like k, from contiguous CUDA q, k, v, dout
@@ -307,6 +387,15 @@ def bwd_dkdv(q, k, v, dout, lse, delta, *, causal, window, q_offset,
     else:
         _build.check_grid("flash_attention_bwd_dkdv", 1, B * KV)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if _bwd_counted("flash_attention_bwd_dkdv", q, k, causal, window,
+                    q_offset, route):
+        if scratch is not None:
+            # the second launch: the GQA sum of the per-head partials,
+            # which the first wrote to the scratch and this one reads
+            _build.counted("flash_attention_bwd_dkdv_sum", lambda: (
+                float(scratch.numel() - 2 * k.numel()),
+                2.0 * scratch.numel() * 4), q, call=False)
+        return dk, dv
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     args = _bwd_args(q, k, causal, window, q_offset, logit_cap)
@@ -331,6 +420,9 @@ def bwd_dq(q, k, v, dout, lse, delta, *, causal, window, q_offset,
     route = _bwd_route(q, route)
     _build.check_grid("flash_attention_bwd_dq", 1, B * H)
     dq = torch.empty_like(q)
+    if _bwd_counted("flash_attention_bwd_dq", q, k, causal, window,
+                    q_offset, route):
+        return dq
     with torch.cuda.device(q.device):
         lib = _build.load()
         fn = lib.sira_flash_bwd_dq_tc if route == TENSOR_CORES \
@@ -363,7 +455,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, window)
     kw = dict(causal=causal, window=window, q_offset=q_offset,
               logit_cap=logit_cap)
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
     if out.shape != q.shape or dout.shape != q.shape \
             or out.dtype != q.dtype or dout.dtype != q.dtype \
@@ -396,7 +488,7 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, q_offset, logit_cap):
         kw = dict(causal=causal, window=int(window),
                   q_offset=int(q_offset), logit_cap=logit_cap)
-        if q.is_cuda:
+        if _build.on_card(q):
             q, k, v = _dense(q), _dense(k), _dense(v)
         out, lse = flash_attention_fwd_lse(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, lse)

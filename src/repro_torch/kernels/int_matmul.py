@@ -14,7 +14,7 @@ that lie on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,6 +55,20 @@ def route_for(M: int, K: int, N: int, dtype: torch.dtype) -> str:
     if K <= SHALLOW_K and N >= 16 and M * N <= SMALL_OUT:
         return CUDA_CORES
     return TENSOR_CORES
+
+
+def work(M: int, K: int, N: int, dtype: torch.dtype,
+         out_dtype: torch.dtype, *, scale: bool = False,
+         bias: bool = False) -> Tuple[float, float]:
+    """(operations, HBM bytes) of one (M, K) @ (K, N) call: 2·M·K·N
+    multiply-adds; x and w read once, the output written once, the
+    float32 scale and bias read once.  What a count records for a launch
+    and what ``chip_smoke.py`` bounds the kernel's time by."""
+    size = dtype.itemsize
+    out = out_dtype.itemsize
+    nbytes = (M * K + K * N) * size + M * N * out + 4 * N * (int(scale)
+                                                           + int(bias))
+    return 2.0 * M * K * N, float(nbytes)
 
 
 def is_k_major(w: torch.Tensor) -> bool:
@@ -135,7 +149,7 @@ def int_matmul(x: torch.Tensor, w: torch.Tensor,
     if scale is not None:
         scale = _vec(scale, N, "scale", x)
         bias = None if bias is None else _vec(bias, N, "bias", x)
-    if not x.is_cuda:
+    if not _build.on_card(x):
         if route is not None:
             raise RuntimeError(f"int_matmul: route {route!r} needs tensors "
                                f"on a CUDA device, got {x.device}")
@@ -168,6 +182,10 @@ def int_matmul(x: torch.Tensor, w: torch.Tensor,
         _build.check_grid("int_matmul", -(-M // _TILE), -(-N // _TILE))
         wsk, wsn = w.stride()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if _build.counted("int_matmul", lambda: work(
+            M, K, N, x.dtype, out_dtype, scale=dequant,
+            bias=bias is not None), x, route):
+        return out
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.sira_int_matmul(

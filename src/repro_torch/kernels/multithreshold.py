@@ -19,7 +19,7 @@ it only for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -65,6 +65,19 @@ def route_for(M: int, C: int, N: int, dtype: torch.dtype) -> str:
     if N >= SEARCH_FROM_N and slab_bytes(N, dtype) <= _MAX_SLAB_BYTES:
         return SEARCH
     return COMPARE_COUNT
+
+
+def work(M: int, C: int, N: int, dtype: torch.dtype,
+         out_dtype: torch.dtype) -> Tuple[float, float]:
+    """(operations, HBM bytes) of one call on x (M, C) against N
+    thresholds: x and T read once, the output written once; the compares
+    of a binary search, M·C·ceil(log2(N + 1)) (the least work of the
+    function, not the M·C·N of a linear count).  What a count records for
+    a launch and what ``chip_smoke.py`` bounds the kernel's time by."""
+    size = dtype.itemsize
+    out = out_dtype.itemsize
+    return (float(M) * C * int(N).bit_length(),
+            float(M * C * size + N * C * size + M * C * out))
 
 
 def infer_out_dtype(n_thresholds: int, out_bias: int):
@@ -118,7 +131,7 @@ def multithreshold(x: torch.Tensor, thresholds: torch.Tensor, *,
     out_bias = int(out_bias)
     if out_dtype is None:
         out_dtype = infer_out_dtype(N, out_bias)
-    if not x.is_cuda:
+    if not _build.on_card(x):
         return multithreshold_ref(x, thresholds, out_bias=out_bias,
                                   out_dtype=out_dtype)
 
@@ -133,6 +146,10 @@ def multithreshold(x: torch.Tensor, thresholds: torch.Tensor, *,
     _build.check_grid("multithreshold", 1, -(-C // _TILE_COLS))
     x, thresholds = x.contiguous(), thresholds.contiguous()
     out = torch.empty((M, C), dtype=out_dtype, device=x.device)
+    if _build.counted("multithreshold",
+                      lambda: work(M, C, N, x.dtype, out_dtype),
+                      x, route):
+        return out
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.sira_multithreshold(

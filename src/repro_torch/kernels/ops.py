@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from . import ref
+from . import _build, ref
 from .int_matmul import int_matmul as _int_matmul_kernel
 from .multithreshold import infer_out_dtype  # noqa: F401  (re-exported)
 from .multithreshold import multithreshold as _multithreshold_kernel
@@ -24,7 +24,7 @@ from .quantize import quantize as _quantize_kernel
 
 def _wants_kernel(use_kernel: Optional[bool], x: torch.Tensor,
                   name: str) -> bool:
-    if use_kernel and not x.is_cuda:
+    if use_kernel and not _build.on_card(x):
         raise RuntimeError(
             f"{name}: use_kernel=True needs tensors on a CUDA device, "
             f"got {x.device}")

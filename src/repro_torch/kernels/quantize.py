@@ -11,6 +11,8 @@ uses it only for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from . import _build
@@ -18,6 +20,18 @@ from .ref import quantize_ref
 
 _X_KIND = {torch.float32: 0, torch.float64: 1}
 _OUT_KIND = {torch.int8: 0, torch.int32: 1}
+
+
+def work(M: int, C: int, dtype: torch.dtype, out_dtype: torch.dtype,
+         n_params: int = 1) -> Tuple[float, float]:
+    """(operations, HBM bytes) of one call on x (M, C) with ``n_params``
+    scales and zero points (1 or C): a divide, an add, a round and two
+    clamps per element; x read once, the float32 scales and zero points
+    read once, the output written once.  What a count records for a
+    launch and what ``chip_smoke.py`` bounds the kernel's time by."""
+    size = dtype.itemsize
+    out = out_dtype.itemsize
+    return 5.0 * M * C, float(M * C * size + 8 * n_params + M * C * out)
 
 
 def quantize(x: torch.Tensor, scale: torch.Tensor, zero_point: torch.Tensor,
@@ -44,7 +58,7 @@ def quantize(x: torch.Tensor, scale: torch.Tensor, zero_point: torch.Tensor,
     if s32.numel() != z32.numel():      # one launch argument says which
         s32, z32 = s32.expand(C).contiguous(), z32.expand(C).contiguous()
     qmin, qmax = int(qmin), int(qmax)
-    if not x.is_cuda:
+    if not _build.on_card(x):
         return quantize_ref(x, s32, z32, qmin=qmin, qmax=qmax,
                             out_dtype=out_dtype)
 
@@ -55,6 +69,9 @@ def quantize(x: torch.Tensor, scale: torch.Tensor, zero_point: torch.Tensor,
         return torch.empty((M, C), dtype=out_dtype, device=x.device)
     x = x.contiguous()
     out = torch.empty((M, C), dtype=out_dtype, device=x.device)
+    if _build.counted("quantize", lambda: work(M, C, x.dtype, out_dtype,
+                                               s32.numel()), x):
+        return out
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.sira_quantize(

@@ -34,6 +34,12 @@ ranks on one device) or hold CPU tensors.  gloo takes CUDA tensors in
 through the host: between two processes on one card that staging is the
 transport.
 
+A recording layout (:func:`make_recording_layout`) has a shape of any
+size and no process group: its collectives record through the same
+counter and return results of the right shape without sending anything,
+so that ``roofline/op_cost.py analyze_program`` counts rank 0's program
+on ``meta`` tensors (the dry run's cells), collectives included.
+
 Nothing here runs at import: layouts are made by functions, and
 ``torch.distributed`` is touched only by :func:`init_ranks` and
 :func:`bind`.
@@ -52,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.lower import resolve_device
+from ..roofline import op_cost
 from ..roofline.analysis import GPUS_PER_NODE, CollectiveStats
 
 AXES = ("data", "model")
@@ -117,12 +124,16 @@ class Layout:
     per axis of size > 1 once bound.  Ranks are laid out row-major over
     ``axis_names`` (``model`` fastest), as ``jax.make_mesh`` orders
     devices.  An unbound layout (``bound=False``) has shapes only: the
-    dry run costs it, and its collectives raise."""
+    dry run costs it, and its collectives raise, unless it is a recording
+    one (``recording=True``, :func:`make_recording_layout`): its
+    collectives take ``meta`` tensors, record and return results of the
+    right shape."""
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     rank: int = 0
     backend: Optional[str] = None
     bound: bool = False
+    recording: bool = False
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
     stats: CollectiveCounter = dataclasses.field(
         default_factory=CollectiveCounter)
@@ -175,6 +186,8 @@ class Layout:
 
     # ------------------------------------------------------ collectives
     def _group(self, axis: str):
+        if self.recording:
+            return _RECORDING
         if not self.bound:
             raise RuntimeError(
                 f"layout {self.name} has shapes only: bind it to a process "
@@ -338,6 +351,19 @@ def _spans_nodes(shape: Tuple[int, ...], axis_names: Tuple[str, ...],
                for members in _axis_groups(layout, axes))
 
 
+def make_recording_layout(shape: Sequence[int],
+                          axis_names: Optional[Sequence[str]] = None,
+                          rank: int = 0) -> Layout:
+    """A layout of ``shape`` (axes as :func:`make_layout` names them) for
+    rank ``rank``'s program traced on ``meta`` tensors: no process group;
+    each collective records through :attr:`Layout.stats`, as a real run
+    does, and returns a result of the right shape."""
+    shape = tuple(int(n) for n in shape)
+    names = tuple(axis_names) if axis_names is not None else \
+        (AXES if len(shape) == 2 else POD_AXES)
+    return Layout(axis_names=names, shape=shape, rank=rank, recording=True)
+
+
 def make_debug_layout(n_devices: int = 1) -> Layout:
     """A small layout over the job's ranks (tests, the CPU, one card):
     ``model`` 2 when the count is even, else 1; the rest ``data``.  Every
@@ -383,6 +409,10 @@ def current_layout() -> Optional[Layout]:
 
 # --------------------------------------------------------- collectives
 
+#: the "process group" of a recording layout's axes
+_RECORDING = object()
+
+
 def _resolve(axis: Axis, layout: Optional[Layout]):
     """(process group or None when the axis has one rank, its size, the
     counter, the axis name, whether it spans nodes) for an axis name or a
@@ -407,16 +437,27 @@ def _collective(op: str, x: torch.Tensor, axis: Axis,
     group, g, counter, name, internode = _resolve(axis, layout)
     if group is None:
         return x
+    recording = group is _RECORDING
+    if recording and not x.is_meta:
+        raise RuntimeError("a recording layout's collectives take the meta "
+                           "tensors of a counted program "
+                           "(roofline/op_cost.py analyze_program)")
     nbytes = x.numel() * x.element_size()
     if op == "all-gather":
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(g)]
-        dist.all_gather(parts, x, group=group)
+        if recording:
+            op_cost.record_collective("all-gather", nbytes, g * nbytes)
+        else:
+            dist.all_gather(parts, x, group=group)
         counter.record("all-gather", nbytes, g, name, internode)
         return torch.cat(parts, dim=dim)
     out = (x.detach() if op == "max" else x).contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
-                    else dist.ReduceOp.SUM, group=group)
+    if recording:
+        op_cost.record_collective(op_name or "all-reduce", nbytes, nbytes)
+    else:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=group)
     counter.record(op_name or "all-reduce", nbytes, g, name, internode)
     return out
 

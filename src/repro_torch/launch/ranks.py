@@ -39,7 +39,8 @@ process before the ranks start (``run_oracle``/``start_oracle``, or
 the whole model and the ranks' blocks never share a card) and read from
 the files ``args["oracles"]`` names, or computed in the rank:
 
-* ``train``, ``train_quant``, ``train_compress``, ``train_timed``  the
+* ``train``, ``train_quant``, ``train_compress``, ``train_timed``,
+  ``train_moe``, ``train_hybrid``  the
                    train step of a model split over each layout of
                    ``layouts`` (tensor, data and ZeRO parallelism,
                    fake-quant with ``quant_bits``, int8 gradients with
@@ -50,7 +51,8 @@ the files ``args["oracles"]`` names, or computed in the rank:
 * ``moe_prefill``, ``ssm_prefill``  the prefill and ``decode`` decode
                    steps of each arch of ``archs`` split over ``layout``
                    (MoE expert parallel, Mamba2 by head), with MoE's
-                   near-tie routing rule;
+                   near-tie routing rule, and the collectives of the
+                   prefill and of the first decode step;
 * ``static_serve`` the static engine under ``layout`` against the whole
                    engine's streams, with the near-tie rule.
 
@@ -460,7 +462,8 @@ def task_psum(layout, args, device):
 # ``args["oracle_in_rank"]``.
 
 ORACLE_TASKS = ("train", "train_quant", "train_compress", "train_timed",
-                "moe_prefill", "ssm_prefill", "static_serve")
+                "train_moe", "train_hybrid", "moe_prefill", "ssm_prefill",
+                "static_serve")
 
 
 def _cfg(spec: Dict[str, Any], arch: Optional[str] = None):
@@ -795,7 +798,12 @@ def _family_run(model, toks, n_decode, device, layout=None):
             steps = []
             with routing_log() as dlog:
                 for i in range(n_decode):
+                    if layout is not None and i == 0:
+                        layout.stats.reset()
                     lg, cache = model.decode_step(t[:, i:i + 1], cache, i)
+                    if layout is not None and i == 0:
+                        out["decode_collectives"] = dataclasses.asdict(
+                            layout.stats.stats())
                     steps.append(lg[..., :V].float().cpu())
             out["decode"] = torch.cat(steps, dim=1)
             if cfg.family == "moe":
@@ -848,6 +856,7 @@ def task_families(key: str, args, device, oracles) -> Dict[str, Any]:
                           layout)
         res = dict(flash_launches=got["flash_launches"],
                    seconds=got["seconds"], collectives=got["collectives"],
+                   decode_collectives=got.get("decode_collectives"),
                    param_bytes=sum(t.numel() * t.element_size()
                                    for t in model.params.parameters()),
                    whole_param_bytes=whole_bytes,

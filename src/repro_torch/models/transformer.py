@@ -67,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.lower import resolve_device
+from ..obs.trace import get_tracer
 from .attention import (attention_decode, attention_prefill, init_attention,
                         init_kv_cache, paged_attention)
 from .common import (LayoutQuant, ShapeOnly, TensorParallel, dense_init,
@@ -383,29 +384,38 @@ class Model(nn.Module):
             return fn(*args, **kw)
         tp = self._tp()
         quant = self._quant(quant)
-        x = self._embed(params, tokens, frontend_embed)
+        # the embedding, each layer and the head in obs spans (a count
+        # files their ops under them: roofline/op_cost.py)
+        span = get_tracer().span
+        with span("embed"):
+            x = self._embed(params, tokens, frontend_embed)
         layers = params["layers"]
         aux = None
         if cfg.family == "moe":
             auxs = []
-            for p in layers:
-                x, a = run(_moe_layer_fwd, p, x, cfg, quant=quant, tp=tp)
+            for i, p in enumerate(layers):
+                with span(f"layer{i}"):
+                    x, a = run(_moe_layer_fwd, p, x, cfg, quant=quant, tp=tp)
                 auxs.append(a)
             aux = {k: torch.stack([a[k] for a in auxs]).mean()
                    for k in auxs[0]}
         elif cfg.family in ("ssm", "hybrid"):
             for i, p in enumerate(layers):
-                x = run(_mamba_layer, p, x, cfg, quant=quant, tp=tp)
+                with span(f"layer{i}"):
+                    x = run(_mamba_layer, p, x, cfg, quant=quant, tp=tp)
                 if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
-                    x = run(_dense_layer_fwd, params["shared_attn"], x, cfg,
-                            window=0, quant=quant, tp=tp)
+                    with span(f"layer{i}.shared_attn"):
+                        x = run(_dense_layer_fwd, params["shared_attn"], x,
+                                cfg, window=0, quant=quant, tp=tp)
         else:
             for i, p in enumerate(layers):
                 local = cfg.sliding_window and i % 2 == 0
-                x = run(_dense_layer_fwd, p, x, cfg,
-                        window=cfg.sliding_window if local else 0,
-                        quant=quant, tp=tp)
-        return self._logits(params, x), aux
+                with span(f"layer{i}"):
+                    x = run(_dense_layer_fwd, p, x, cfg,
+                            window=cfg.sliding_window if local else 0,
+                            quant=quant, tp=tp)
+        with span("head"):
+            return self._logits(params, x), aux
 
     # ------------------------------------------------------------ cache
     def init_cache(self, batch: int, s_max: int,
@@ -461,7 +471,9 @@ class Model(nn.Module):
         tp = self._tp()
         quant = self._quant(quant)
         params = self._weights()
-        x = self._embed(params, tokens, None)
+        span = get_tracer().span
+        with span("embed"):
+            x = self._embed(params, tokens, None)
 
         def at(c, *i):
             return {k: v[i] for k, v in c.items()}
@@ -470,31 +482,37 @@ class Model(nn.Module):
             for i, p in enumerate(params["layers"]):
                 where = (i,) if cfg.family == "ssm" else \
                     divmod(i, cfg.attn_every)
-                x = _mamba_layer(p, x, cfg, quant=quant,
-                                 state=at(mamba, *where), tp=tp)
+                with span(f"layer{i}"):
+                    x = _mamba_layer(p, x, cfg, quant=quant,
+                                     state=at(mamba, *where), tp=tp)
                 if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
-                    x, _ = _dense_layer_dec(
-                        params["shared_attn"], x,
-                        at(cache["attn"], i // cfg.attn_every), cache_index,
-                        cfg, window=0, quant=quant, valid_from=valid_from,
-                        tp=tp)
-            return self._logits(params, x), cache
+                    with span(f"layer{i}.shared_attn"):
+                        x, _ = _dense_layer_dec(
+                            params["shared_attn"], x,
+                            at(cache["attn"], i // cfg.attn_every),
+                            cache_index, cfg, window=0, quant=quant,
+                            valid_from=valid_from, tp=tp)
+            with span("head"):
+                return self._logits(params, x), cache
         for i, p in enumerate(params["layers"]):
-            if cfg.family == "moe":
-                x = _moe_layer_dec(p, x, at(cache, i), cache_index, cfg,
-                                   quant=quant, valid_from=valid_from, tp=tp)
-                continue
-            if cfg.sliding_window:
-                part = "local" if i % 2 == 0 else "global"
-                c = at(cache[part], i // 2)
-                rolling = part == "local"
-            else:
-                c = at(cache, i)
-                rolling = False
-            x, _ = _dense_layer_dec(p, x, c, cache_index, cfg, window=0,
-                                    quant=quant, rolling=rolling,
-                                    valid_from=valid_from, tp=tp)
-        return self._logits(params, x), cache
+            with span(f"layer{i}"):
+                if cfg.family == "moe":
+                    x = _moe_layer_dec(p, x, at(cache, i), cache_index, cfg,
+                                       quant=quant, valid_from=valid_from,
+                                       tp=tp)
+                    continue
+                if cfg.sliding_window:
+                    part = "local" if i % 2 == 0 else "global"
+                    c = at(cache[part], i // 2)
+                    rolling = part == "local"
+                else:
+                    c = at(cache, i)
+                    rolling = False
+                x, _ = _dense_layer_dec(p, x, c, cache_index, cfg, window=0,
+                                        quant=quant, rolling=rolling,
+                                        valid_from=valid_from, tp=tp)
+        with span("head"):
+            return self._logits(params, x), cache
 
     # -------------------------------------------------------------- loss
     def loss(self, params, tokens, labels, frontend_embed=None, *,
@@ -507,15 +525,18 @@ class Model(nn.Module):
         (reference fault 8, ROADMAP C; kept for parity)."""
         logits, _ = self._forward(params, tokens, frontend_embed,
                                   quant=quant, remat=remat)
-        if frontend_embed is not None:
-            logits = logits[:, frontend_embed.shape[1]:]
-        logits = logits.to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-        nll = (logz - gold).mean()
-        aux = getattr(self, "_last_aux", None)
-        if aux is not None:
-            nll = nll + 0.01 * aux["load_balance"] + 1e-3 * aux["router_z"]
+        with get_tracer().span("loss"):
+            if frontend_embed is not None:
+                logits = logits[:, frontend_embed.shape[1]:]
+            logits = logits.to(torch.float32)
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                labels.long()[..., None])[..., 0]
+            nll = (logz - gold).mean()
+            aux = getattr(self, "_last_aux", None)
+            if aux is not None:
+                nll = nll + 0.01 * aux["load_balance"] + \
+                    1e-3 * aux["router_z"]
         return nll
 
     def param_tree(self) -> Dict[str, Any]:

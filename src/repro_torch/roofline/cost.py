@@ -26,10 +26,17 @@ port has no HLO, so this module counts what the port's model code does:
   the shapes the model code allocates (estimates).
 
 A training step is the forward, twice its weight products and
-elementwise work for the backward, 2.5 times the attention's products
-for the flash backward (it recomputes S and adds dP, dV, dQ, dK), and a
-second forward with ``remat``.  Collectives are predicted from the same
+elementwise work for the backward, 3.5 times the attention's products
+for the flash backward (dK/dV recomputes S and makes dP, dV and dK; dQ
+recomputes S and dP and makes dQ), and with ``remat`` a second forward of
+each layer but its last product where nothing saves that product's
+output (``w_down`` without a post-norm, Mamba2's ``out_proj``:
+``torch.utils.checkpoint`` stops recomputing once the tensors the
+backward needs are back).  Collectives are predicted from the same
 shapes with ``launch/mesh.py``'s ring rule.
+
+``roofline/op_cost.py`` counts the program itself; the dry run holds
+these figures beside its count (``predicted``).
 """
 from __future__ import annotations
 
@@ -232,12 +239,18 @@ def cell_cost(cfg, shape, layout, *, microbatches: int = 8,
             apps.append((local["shared_attn"], True, 0))
 
     mm = ew = att = 0.0
+    last = 0.0               # products that remat does not recompute
     byts = 0.0
     coll = _Colls(layout)
     for p, is_attn, window in apps:
         for K, N in _token_products(p):
             mm += 2.0 * T * K * N
             byts += (T * (K + N)) * a
+        if "mlp" in p and not cfg.post_norms:
+            last += 2.0 * T * math.prod(_weight(p["mlp"]["w_down"]).shape)
+        if "mamba" in p:
+            last += 2.0 * T * math.prod(_weight(p["mamba"]["out_proj"])
+                                        .shape)
         if is_attn:
             H_l = _weight(p["attn"]["wq"]).shape[1] // hd
             KV_l = _weight(p["attn"]["wk"]).shape[1] // hd
@@ -272,7 +285,8 @@ def cell_cost(cfg, shape, layout, *, microbatches: int = 8,
     # embedding, final norm, head
     byts += 2 * T * d * a
     ew += 4.0 * T * d
-    mm += 2.0 * T * d * V_l
+    head_mm = 2.0 * T * d * V_l
+    mm += head_mm
     byts += T * (d + V_l) * a + _nbytes(head)
     out_bytes = float(T * cfg.vocab_padded * a)
     byts += out_bytes
@@ -298,8 +312,9 @@ def cell_cost(cfg, shape, layout, *, microbatches: int = 8,
         byts += param_bytes                       # weights read once
     else:
         passes = 4.0 if remat else 3.0            # fwd, 2 x bwd, remat
-        mm, ew, byts = mm * passes, ew * 3.0, byts * passes
-        att = att * (4.5 if remat else 3.5)
+        recompute = mm - head_mm - last if remat else 0.0
+        mm, ew, byts = 3.0 * mm + recompute, ew * 3.0, byts * passes
+        att = att * (5.5 if remat else 4.5)
         byts += param_bytes * passes * microbatches
         ew += 5.0 * T * cfg.vocab_padded + 15.0 * numel
         opt = opt_state_bytes(tree, local, layout)
@@ -349,9 +364,9 @@ def _ssd(cfg, mamba, b, S, kind):
     P, N, c = s.head_dim, s.d_state, s.chunk
     ch = _weight(mamba["conv_w"]).shape[1]
     T = b * S
-    if kind == "decode":
-        mm = 4.0 * T * H * P * N
-        ew = 2.0 * T * s.d_conv * ch + 6.0 * T * H * P * N
+    if kind == "decode":       # the state's update is elementwise
+        mm = 2.0 * T * H * P * N
+        ew = 2.0 * T * s.d_conv * ch + 8.0 * T * H * P * N
         byts = 2 * b * H * P * N * 4 + T * ch * 4
         return mm, byts, ew
     c = min(c, S)

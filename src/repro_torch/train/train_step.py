@@ -30,6 +30,7 @@ from typing import Any, Dict, NamedTuple, Optional, Union
 
 import torch
 
+from ..obs.trace import get_tracer
 from ..optim.adamw import AdamW, AdamWState
 from ..quant.quantizer import QuantSpec
 from ..tree import flatten, leaves, unflatten
@@ -148,15 +149,17 @@ def make_train_step(model, optimizer: AdamW, *,
                 # float32 sums in place: the first microbatch's grads
                 # (exact in float32) start the sum, so no zero tree and
                 # no second tree of sums is ever held
-                if acc is None:
-                    acc = [g.to(torch.float32) for g in leaves(g_i)]
-                else:
-                    for a, g in zip(acc, leaves(g_i)):
-                        a.add_(g)
+                with get_tracer().span("grad_sum"):
+                    if acc is None:
+                        acc = [g.to(torch.float32) for g in leaves(g_i)]
+                    else:
+                        for a, g in zip(acc, leaves(g_i)):
+                            a.add_(g)
                 del g_i
             loss = loss / microbatches
-            for a in acc:
-                a.div_(microbatches)
+            with get_tracer().span("grad_sum"):
+                for a in acc:
+                    a.div_(microbatches)
             if layout is not None:        # consumes acc, leaf by leaf
                 return _sharded_update(state, loss, acc)
             grads = unflatten(flatten(state.params)[1], acc)
@@ -164,14 +167,14 @@ def make_train_step(model, optimizer: AdamW, *,
             loss, grads = loss_and_grads(state.params, batch)
 
         ef = state.error_feedback
-        if compress:
-            grads, ef = compress_grads(grads, ef)
-
-        new_params, new_opt = optimizer.update(grads, state.opt,
-                                               state.params)
-        with torch.no_grad():
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(
-                g.to(torch.float32))) for g in leaves(grads)))
+        with get_tracer().span("optimizer"):
+            if compress:
+                grads, ef = compress_grads(grads, ef)
+            new_params, new_opt = optimizer.update(grads, state.opt,
+                                                   state.params)
+            with torch.no_grad():
+                gnorm = torch.sqrt(sum(torch.sum(torch.square(
+                    g.to(torch.float32))) for g in leaves(grads)))
         metrics = {"loss": loss, "grad_norm": gnorm,
                    "lr": optimizer.schedule(new_opt.step)}
         if return_grads:
@@ -189,7 +192,7 @@ def make_train_step(model, optimizer: AdamW, *,
         float32 grads in leaf order, replaced by their blocks in place,
         so that each whole grad is freed as its block is made."""
         n_data = layout.size(BATCH_AXES)
-        with torch.no_grad():
+        with torch.no_grad(), get_tracer().span("grad_reduce"):
             loss = layout.all_reduce(loss, BATCH_AXES) / n_data
             for i, p in enumerate(plans):
                 flat[i] = _reduce_grad(flat[i], p).div_(n_data)
@@ -199,12 +202,13 @@ def make_train_step(model, optimizer: AdamW, *,
                 sq, ("model", "data", "pod")))
             grads = unflatten(flatten(state.params)[1], flat)
         ef = state.error_feedback
-        if compress:
-            grads, ef = compress_grads(grads, ef, amax=functools.partial(
-                layout.max, axis=("model", "data")))
-        blocks, new_opt = optimizer.update(grads, state.opt, state.params,
-                                           gnorm=gnorm)
-        with torch.no_grad():
+        with get_tracer().span("optimizer"):
+            if compress:
+                grads, ef = compress_grads(grads, ef, amax=functools.partial(
+                    layout.max, axis=("model", "data")))
+            blocks, new_opt = optimizer.update(grads, state.opt,
+                                               state.params, gnorm=gnorm)
+        with torch.no_grad(), get_tracer().span("param_gather"):
             flat, spec = flatten(blocks)
             new_params = unflatten(spec, [
                 b if p.zero_dim is None else

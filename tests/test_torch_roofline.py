@@ -11,8 +11,12 @@
   both: the attention is stubbed out while counting);
 * ``Model.init_shapes`` has ``init``'s shapes and dtypes, and the dry
   run's parameter and optimizer bytes are the real tensors' ``nbytes``;
-* every dry-run cell of the production layouts is costed or skipped as
-  the reference's ``cell_applicable`` says, and the CLI writes its JSON.
+* every dry-run cell of the production layouts is counted (or, where
+  the port's tensor parallelism refuses the layout, predicted) or
+  skipped as the reference's ``cell_applicable`` says, and the CLI
+  writes its JSON;
+* a cell with int8-packed MoE experts fails naming reference fault 9
+  (C3).
 """
 import dataclasses
 import json
@@ -168,10 +172,11 @@ def test_every_cell_is_costed_or_skipped_as_the_reference_says(tmp_path):
                 if r.ok:
                     assert r.roofline["bottleneck"] in (
                         "compute", "memory", "collective")
-                    one = dryrun.run_cell(arch, name, layout=make_layout(
-                        (1, 1)))
+                    # the resident bytes are cost.py's: no count needed
+                    one = cell_cost(get_config(arch), SHAPES[name],
+                                    make_layout((1, 1)))
                     assert r.memory["param_bytes"] < \
-                        one.memory["param_bytes"]
+                        one.memory()["param_bytes"]
     dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k",
                  "--mesh", "both", "--out", str(tmp_path)])
     for name in ("32x8", "2x32x8"):
@@ -222,3 +227,23 @@ def test_cli_costs_a_cut_cell_on_a_layout(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             dryrun.main(argv + ["--measure"])
+
+
+@pytest.mark.parametrize("arch,fails", [("granite-moe-3b-a800m", True),
+                                        ("qwen2-moe-a2.7b", True),
+                                        ("granite-3-2b", False)])
+def test_int8_weight_cells_fail_on_packed_experts_naming_fault_9(
+        arch, fails, tmp_path):
+    """C3: a cell with int8-packed MoE experts runs ``apply_moe``, which
+    raises ``TypeError`` on them (reference fault 9: neither package can
+    run them); the cell fails and its reason names the fault.  A dense
+    config's int8 weights are counted."""
+    res, = dryrun.main(["--arch", arch, "--shape", "prefill_32k",
+                        "--mesh", "pod", "--int8-weights",
+                        "--out", str(tmp_path)])
+    assert res.ok != fails and not res.skipped
+    if fails:
+        assert res.reason.startswith("reference fault 9")
+        assert "TypeError" in res.reason and "apply_moe" in res.reason
+    else:
+        assert res.counted and res.by_op["mm"]["launches"] > 0
