@@ -6,7 +6,7 @@ Run from the repository root, no arguments, one card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
-use), then runs twelve phases and prints one JSON object per line:
+use), then runs thirteen phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds,
                the HGMMA (16-bit wgmma) instructions of flash_attention's
@@ -70,6 +70,20 @@ use), then runs twelve phases and prints one JSON object per line:
                steps straight equal three + resume bit for bit on the card
                under deterministic algorithms (budget 12); ms per train
                step, seconds per budget, ms per compiled batch
+  examples     the four example twins of ``examples_torch/`` in this
+               process, each ``main([..., "--torch-device", "cuda"])`` at
+               its defaults (the reference's sizes), ``sira_report`` also
+               with ``--workload TFC-w2a2 --verify``; their printed lines
+               go to stderr.  Per twin: its seconds, its returned numbers
+               and its launches of each hand-written kernel, counted from
+               0 before it.  quickstart's launches equal its plan's
+               (``expected_launches`` of TFC's plan, which this phase
+               builds again and holds to the twin's plan per kind); the
+               others launch none of the four: serve_quantized's prefill
+               chunks and decode steps both go through ``decode_paged``'s
+               plain ``paged_attention`` (as in the reference), train_qat
+               (its A2Q invariant checked) trains in plain PyTorch, and
+               sira_report proves and prices in numpy
   kernel_times each kernel's device time, wrapper, plain version, bound
                and library call at the main paths' shapes; int_matmul on
                both routes at every call of CNV(64,32) and TFC(784), both
@@ -83,7 +97,7 @@ use), then runs twelve phases and prints one JSON object per line:
                both routes, tensor_cores and cuda_cores) at the same
                layer shape beside SDPA's backward
   lm_prefill   the LM slice: qwen2-1.5b at full width (28 layers) with
-               seeded random weights.  float32, B=1, S=1024, at 14 of
+               seeded random weights.  float32, B=1, S=1024, at 7 of
                the 28 layers (the one cut): logits with the
                flash-attention kernel against plain attention, and
                token-by-token ``decode_step`` against ``forward``; one
@@ -295,6 +309,8 @@ from repro_torch.serve import (KVCacheSpec, PagedKVCache,      # noqa: E402
                                derive_kv_spec)
 from repro_torch.tree import (flatten, leaves, tree_map,     # noqa: E402
                               unflatten)
+from examples_torch import (quickstart, serve_quantized,      # noqa: E402
+                            sira_report, train_qat)
 
 DEV = torch.device("cuda")
 BATCH = 256
@@ -315,9 +331,10 @@ LM_ARCH = "qwen2-1.5b"
 LM_SEED = 0
 FA_LAYER = dict(B=1, S=4096, H=12, KV=2, hd=128)
 LM_F32 = (1, 1024)                        # (B, S) of the float32 checks
-# their depth: 14 of the 28 layers (the token-by-token decode over 1024
-# positions took 56 s at full depth on one H100 80GB HBM3's host, 700 W)
-LM_F32_LAYERS = 14
+# their depth: 7 of the 28 layers (the token-by-token decode over 1024
+# positions took 56 s at full depth and 24.7 s at 14 layers on hosts of
+# one H100 80GB HBM3, 700 W; the whole script then took 677 s)
+LM_F32_LAYERS = 7
 LM_BF16_CHECK = (1, 2048)                 # (B, S) of the bfloat16 check
 LM_BF16 = ((4, 2048, 3), (1, 32768, 2))   # (B, S, timed calls), bfloat16
 LM_PROFILED = (1, 32768)    # the bf16 prefill also profiled once (launch)
@@ -1810,6 +1827,77 @@ def phase_qat_chain(card: str) -> dict:
              "analytical FPGA model (pynq-z1), not chip measurements; the "
              "init differs from the reference's (torch.Generator), so only "
              "the invariants are checked against BENCH_qat.json's rows",
+        launches=total)
+
+
+# --------------------------------------------------------------------------
+# phase: examples — the example twins, in-process on the card
+# --------------------------------------------------------------------------
+
+#: (twin, its arguments besides --torch-device), in the order they run:
+#: quickstart first, train_qat last (``phase_examples`` reads them so)
+EXAMPLE_RUNS = [
+    (quickstart, []),
+    (sira_report, []),
+    (sira_report, ["--workload", "TFC-w2a2", "--verify"]),
+    (serve_quantized, []),
+    (train_qat, []),
+]
+#: a twin's returned numbers left off the phase line: token streams and
+#: every step's loss (their ends are on it)
+EXAMPLE_BULK = ("streams_fp", "streams_int8", "losses")
+
+
+def run_example(module, argv) -> dict:
+    """One twin's ``main`` on the card, every count from 0 just before it;
+    its seconds, numbers and the launches it made."""
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = module.main(argv + ["--torch-device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(
+        example=module.__name__.rsplit(".", 1)[-1], argv=argv,
+        seconds=seconds,
+        launches={k: _build.LAUNCH_COUNTS.get(k, 0) for k in KERNEL_META},
+        # every count the run moved: routes and the backward kernels too
+        launches_all={k: v for k, v in _build.LAUNCH_COUNTS.items() if v},
+        numbers={k: v for k, v in out.items() if k not in EXAMPLE_BULK})
+
+
+def phase_examples(card: str) -> dict:
+    runs = [run_example(m, argv) for m, argv in EXAMPLE_RUNS]
+    qs = runs[0]
+    model = build_flow(make_tfc(), verify="equivalence").model
+    plan = model.compile()
+    check(plan.kernel_calls == qs["numbers"]["kernel_calls"],
+          f"quickstart planned {qs['numbers']['kernel_calls']}, TFC's plan "
+          f"is {plan.kernel_calls}")
+    want = expected_launches(model, plan)
+    got = {k: qs["launches"][k] for k in want}
+    check(got == want and qs["launches"]["flash_attention"] == 0,
+          f"quickstart launched {qs['launches']}, its plan needs {want}")
+
+    qat = runs[-1]["numbers"]
+    check(qat["invariant_checked"]
+          and all(b <= budget for b, budget in zip(qat["proven_bits"],
+                                                   qat["budgets"])),
+          f"train_qat: proven bits {qat['proven_bits']} over budgets "
+          f"{qat['budgets']}")
+    for r in runs[1:]:
+        check(not r["launches_all"],
+              f"{r['example']} {r['argv']} launched {r['launches_all']}")
+    total = {k: sum(r["launches"][k] for r in runs) for k in KERNEL_META}
+    return dict(
+        phase="examples", card=card, runs=runs,
+        quickstart_expected_launches=want,
+        note="each twin at its defaults (the reference's sizes) on the "
+             "card, seconds on the host clock (first calls included); only "
+             "quickstart's compiled step launches hand-written kernels: "
+             "serve_quantized prefills and decodes through decode_paged's "
+             "plain paged_attention, train_qat trains in plain PyTorch, "
+             "sira_report proves and prices in numpy",
         launches=total)
 
 
@@ -3768,6 +3856,8 @@ def main() -> None:
     emit(sira)
     qat = phase_qat_chain(env["nvidia_smi"])
     emit(qat)
+    examples = phase_examples(env["nvidia_smi"])
+    emit(examples)
     times = phase_kernel_times(main_path["configs"])
     emit(times)
     # the float32 checks of lm_prefill and lm_families start here, in
@@ -3792,10 +3882,10 @@ def main() -> None:
     launch = phase_launch(env["nvidia_smi"], train, lm)
     emit(launch)
     phases = dict(main_path=main_path, sira_flow=sira, qat_chain=qat,
-                  lm_prefill=lm, lm_families=fam, serve=serve,
-                  lm_train=train, launch=launch)
+                  examples=examples, lm_prefill=lm, lm_families=fam,
+                  serve=serve, lm_train=train, launch=launch)
     launches = dict(main_path["launches"], **lm["launches"])
-    for phase in (fam, serve, train, launch):
+    for phase in (examples, fam, serve, train, launch):
         launches["flash_attention"] += phase["launches"]["flash_attention"]
     kernels = []
     for name, meta in KERNEL_META.items():

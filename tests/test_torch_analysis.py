@@ -10,6 +10,8 @@ names*: fresh tensor/node names come from a process-global counter
 ``..._710`` in the other.  ``_name_map`` pairs the names by topological
 position and the comparisons go through that map.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ import repro.core as jcore
 from repro.core.workloads import ALL_WORKLOADS as J_WORKLOADS
 import repro_torch.core as tcore
 from repro_torch.core.workloads import ALL_WORKLOADS as T_WORKLOADS
+from test_sira_property import _random_qnn
 
 ALL_NAMES = list(J_WORKLOADS)
 RANGE_ARRAYS = ("lo", "hi", "int_lo", "int_hi", "scale", "bias")
@@ -205,3 +208,64 @@ def test_accumulator_dtype_returns_torch_dtypes():
     assert tcore.accumulator_dtype(16) == torch.int32
     assert tcore.accumulator_dtype(31) == torch.int32
     assert tcore.accumulator_dtype(32) == torch.int64
+
+
+# ------------------------------------------------ reference fault 11, pinned
+
+def _fault11_reports(core, graph):
+    """Streamline the seed-254 graph in ``core`` (either package), analyze
+    it and minimise its accumulators, recording each datatype-bound call
+    as (K, n_bits, m_bits, input_signed)."""
+    inp = {"X": core.ScaledIntRange(lo=np.asarray(-2.0),
+                                    hi=np.asarray(2.0))}
+    model, _ = core.Streamline().apply(core.SiraModel(graph.copy(), inp))
+    g = model.metadata["aggregation"].graph
+    ranges = core.analyze(g, inp)
+    acc = sys.modules[core.__name__ + ".accumulator"]
+    calls = []
+    bound = acc.datatype_bound_bits
+
+    def recording(K, n_bits, m_bits, input_signed=True):
+        calls.append((K, n_bits, m_bits, input_signed))
+        return bound(K, n_bits, m_bits, input_signed=input_signed)
+    acc.datatype_bound_bits = recording
+    try:
+        reps = core.minimize_accumulators(g, inp, ranges=ranges)
+    finally:
+        acc.datatype_bound_bits = bound
+    return g, ranges, reps, calls
+
+
+def test_fault_11_datatype_bound_reads_the_activation_twice():
+    """Reference fault 11, kept by the port (as faults 5 and 8):
+    ``minimize_accumulators`` takes the weight operand as ``rs_in[1] if
+    not rs_in[1].is_point else rs_in[0]``, so for a constant weight it
+    reads the activation's width twice.  On the seed-254 graph of
+    ``tests/test_sira_property.py`` (the falsifying draw of
+    ``test_accumulator_fit_property``) the second MatMul's bound is
+    ``datatype_bound_bits(3, 2, 2)`` = 6 bits where its 4-bit weight
+    gives 8, and a seeded input drives that accumulator below -32, which
+    6 signed bits cannot hold while SIRA's 7 do."""
+    ref = _random_qnn(254, 2, 4, 4, True, True)
+    gj, rj, reps_j, calls_j = _fault11_reports(jcore, ref)
+    gt, rt, reps_t, calls_t = _fault11_reports(
+        tcore, tcore.graph_from_reference(ref))
+    got = [(r.op_type, r.K, r.sira_bits, r.datatype_bits) for r in reps_t]
+    assert got == [(r.op_type, r.K, r.sira_bits, r.datatype_bits)
+                   for r in reps_j]
+    assert [(r.sira_bits, r.datatype_bits) for r in reps_t] == [(6, 7),
+                                                                (7, 6)]
+    assert calls_t == calls_j
+    assert calls_t[1] == (3, 2, 2, False)
+
+    mm = [n for n in gt.nodes if n.op_type == "MatMul"][1]
+    act, wgt = (rt[t] for t in mm.inputs[:2])
+    assert not act.is_point and act.required_unsigned_bits() == 2
+    assert wgt.is_point and wgt.required_signed_bits() == 4
+    assert tcore.datatype_bound_bits(3, 2, 4, input_signed=False) == 8
+
+    # the property test's five draws of 4 rows (its seed + 4), in one
+    x = np.random.default_rng(254 + 4).uniform(-2, 2, size=(20, 3))
+    acc = gt.execute({"X": x}, record_all=True)[mm.outputs[0]]
+    assert acc.min() < -(2 ** 5)                       # outside 6 bits
+    assert -(2 ** 6) <= acc.min() and acc.max() <= 2 ** 6 - 1   # in 7

@@ -1,9 +1,10 @@
-"""The port stands alone: ``repro_torch`` (and ``chip_smoke.py``) import
-neither ``jax`` nor the JAX package ``repro``, proven in a fresh process
-that runs the port's QNN main path (affine domain, dataflow steps), the
-fuzzer, one reduced LM prefill, three QAT steps with their export, a
-serving engine answering two requests (SIRA-int8 cache), a dry-run cell
-and ``compressed_psum`` over a one-rank layout, and by a scan of the
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+example twins ``examples_torch/`` import neither ``jax`` nor the JAX
+package ``repro``, proven in a fresh process that runs the port's QNN
+main path (affine domain, dataflow steps), the fuzzer, one reduced LM
+prefill, three QAT steps with their export, a serving engine answering
+two requests (SIRA-int8 cache), a dry-run cell, ``compressed_psum`` over
+a one-rank layout and the quickstart twin, and by a scan of the
 sources."""
 import pathlib
 import re
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples_torch").glob("*.py"))
 
 _PROBE = """
 import sys
@@ -67,6 +68,9 @@ from repro_torch.launch.mesh import make_layout, use_layout
 from repro_torch.train import compressed_psum
 with use_layout(make_layout((1, 1))):
     assert compressed_psum(torch.ones(3), "model").shape == (3,)
+from examples_torch import quickstart, serve_quantized, sira_report
+from examples_torch import train_qat
+assert quickstart.main(["--torch-device", "cpu"])["contained"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED=" + ",".join(bad))

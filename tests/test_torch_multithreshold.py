@@ -35,6 +35,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels.multithreshold import (
     COMPARE_COUNT, ROUTES, SEARCH, SEARCH_FROM_N, multithreshold,
     route_for, slab_bytes)
+from test_torch_analysis import _name_map
 
 DTYPES = {"int32": np.int32, "float32": np.float32, "float64": np.float64}
 EDGE_N = (0, 1, 2, 3, 4, 7, 8, 15, 16, 17, 31, 32, 63, 64, 127, 128, 255)
@@ -199,21 +200,29 @@ def _feeds(model, batch, seed=0):
 def test_cnv_w2a8_is_bit_exact_against_the_reference_interpreter():
     """CNV-w2a8 (8-bit unsigned activations) compiled by the port on the
     CPU in float64: every integer tensor equals the JAX package's
-    ``Graph.execute`` of its own ``build_flow`` of the same workload."""
+    ``Graph.execute`` of its own ``build_flow`` of the same workload.
+    Tensors are paired by topological position (``_name_map``): each
+    package draws generated names from its own process-global counter,
+    which the tests run before this one in the same process move apart
+    (reference fault 5)."""
     model, ref_model = _cnv_w2a8()
     compiled = model.compile(dtype=torch.float64, device="cpu")
     compiled = model.compile(dtype=torch.float64, device="cpu",
                              extra_outputs=compiled.int_tensors)
     assert compiled.kernel_calls["multithreshold"] == 7
+    tmap, _ = _name_map(ref_model.graph.copy(), model.graph.copy())
+    ref_name = {t: r for r, t in tmap.items()}
     feeds = _feeds(model, 2)
     want = ref_model.execute(feeds, record_all=True)
     got = compiled(feeds)
     assert compiled.int_tensors
     for t in compiled.int_tensors:
-        np.testing.assert_array_equal(got[t].astype(np.float64), want[t],
+        np.testing.assert_array_equal(got[t].astype(np.float64),
+                                      want[ref_name[t]],
                                       err_msg=f"integer tensor {t}")
     for o in model.graph.outputs:
-        np.testing.assert_allclose(got[o], want[o], rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(got[o], want[ref_name[o]], rtol=1e-12,
+                                   atol=1e-12)
 
 
 def test_cnv_w2a8_tails_take_the_search_route_at_batch_256():
