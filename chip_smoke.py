@@ -6,12 +6,13 @@ Run from the repository root, no arguments, one card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
-use), then runs thirteen phases and prints one JSON object per line:
+use), then runs fourteen phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds,
                the HGMMA (16-bit wgmma) instructions of flash_attention's
                forward and of the tensor-core backward's dK/dV and dQ
-               kernels (each counted apart) and the IGMMA (int8 wgmma)
+               kernels, both tilings (hd <= 128 and 128 < hd <= 256; each
+               counted apart) and the IGMMA (int8 wgmma)
                instructions of int_matmul in the built library; ptxas's
                registers and spilled bytes of the backward's tensor-core
                kernels (0 spilled)
@@ -95,7 +96,10 @@ use), then runs thirteen phases and prints one JSON object per line:
                also with its log-sum-exp (the training forward), and the
                three backward kernels (D, dK/dV, dQ; bf16 dK/dV and dQ on
                both routes, tensor_cores and cuda_cores) at the same
-               layer shape beside SDPA's backward
+               layer shape beside SDPA's backward, and at gemma2-2b's
+               layer (1 x 8192, 8 heads over 4, hd 256) causal beside
+               SDPA's backward and the backend it chose, then with
+               gemma2's window 4096 and soft-cap 50 (the kernels alone)
   lm_prefill   the LM slice: qwen2-1.5b at full width (28 layers) with
                seeded random weights.  float32, B=1, S=1024, at 7 of
                the 28 layers (the one cut): logits with the
@@ -161,13 +165,13 @@ use), then runs thirteen phases and prints one JSON object per line:
                ``Model.forward`` oracles
   lm_train     the LM's gradient and training (after the earlier phases'
                models are freed).  The backward kernels over an edge grid
-               (float32, bf16, f16; hd 64 to 256; GQA groups 1 and 6;
-               q_offset, window, soft-cap, ragged lengths, rows that see
-               no key, 16 x 12 heads; the layer shape 1 x 4096): the
+               (float32, bf16, f16; hd 64 to 256; GQA groups 1, 2 and
+               6; q_offset, window, soft-cap, ragged lengths, rows that
+               see no key, 16 x 12 heads; the layer shape 1 x 4096): the
                forward's lse within 1e-5 of the plain one, D within
                1e-5 of rowsum(dO*out), dq, dk, dv on each route the
-               case takes (bf16/f16 with hd <= 128 on tensor_cores and,
-               forced, on cuda_cores) within
+               case takes (bf16/f16 on tensor_cores, hd 256 on its own
+               tiling, and, forced, on cuda_cores) within
                ``flash_attention.grad_tolerance`` of the plain backward
                on the same out and lse (tensor_cores: with its term for
                rounding P and dS), bit-equal over two calls, their
@@ -189,6 +193,21 @@ use), then runs thirteen phases and prints one JSON object per line:
                run with a checkpoint every 10 steps killed at step 10,
                and the same command resumes there and ends in the
                straight run's state, bit for bit
+  gemma2_train gemma2-2b (head dim 256, window 4096 on its even layers,
+               soft-cap 50) on the tensor-core backward's hd-256 tiling.
+               bf16 at its published widths cut to 2 of its 26 layers,
+               1 x 6144 (the window cuts the last 2048 queries of layer
+               0): each leaf of ``Model.loss``'s gradient through the
+               kernels no further from the float32 gradient than 1.5x
+               the plain attention's bf16 gradient, plus 1e-3 of its
+               norm, 2 launches of dK/dV and dQ, all on tensor_cores.
+               Then ``launch.train`` at published widths and depth (bf16
+               params, float32 masters, 2 x 1536 tokens a step in 2
+               microbatches, 12 steps): the reference's lines, 26 forward
+               and 26 launches of each backward kernel per microbatch
+               (dK/dV and dQ all on tensor_cores), the loss falling, ms
+               per step, tokens/s, the model-FLOP share, peak memory, one
+               more step profiled
   launch       tensor parallelism (``launch/``, last): two ranks, each its
                own process (``launch/ranks.py``), gloo, both on cuda:0
                (NCCL refuses two ranks on one card; gloo stages the
@@ -224,7 +243,8 @@ use), then runs thirteen phases and prints one JSON object per line:
                model-FLOP utilisation
 
 then a ``{"kernels": [...]}`` line (the four TPU kernels' counterparts
-and the backward kernels, dK/dV and dQ once per route; per kernel:
+and the backward kernels, dK/dV and dQ once per route and once more for
+the tensor_cores route's hd-256 tiling at gemma2's layer; per kernel:
 launches on its path and
 on each phase's path,
 max abs error against the plain version, and at the main path's shape
@@ -330,6 +350,13 @@ ALU_OPS_PER_S = 67e12
 LM_ARCH = "qwen2-1.5b"
 LM_SEED = 0
 FA_LAYER = dict(B=1, S=4096, H=12, KV=2, hd=128)
+# gemma2-2b: its attention layer at S=8192 (its own window and soft-cap),
+# the CUDA graph's calls when timing its backward (fewer: the cuda_cores
+# route takes tens of ms a call there), and its training
+GEMMA2_ARCH = "gemma2-2b"
+GEMMA2_LAYER = dict(B=1, S=8192, H=8, KV=4, hd=256)
+GEMMA2_MASK = dict(window=4096, logit_cap=50.0)
+GEMMA2_BWD_LAUNCHES = 5
 LM_F32 = (1, 1024)                        # (B, S) of the float32 checks
 # their depth: 7 of the 28 layers (the token-by-token decode over 1024
 # positions took 56 s at full depth and 24.7 s at 14 layers on hosts of
@@ -444,8 +471,10 @@ def bound(nbytes: float, ops: float, ops_per_s: float):
 # --------------------------------------------------------------------------
 
 #: the tensor-core backward's kernels (symbol names), each counted apart in
-#: the HGMMA census and held to 0 spilled bytes in ptxas's build log
-BWD_TC_KERNELS = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
+#: the HGMMA census and held to 0 spilled bytes in ptxas's build log: the
+#: hd-256 tiling's first, since a name is matched as a substring
+BWD_TC_KERNELS = ("flash_bwd_dkdv_tc256", "flash_bwd_dq_tc256",
+                  "flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
 
 
 def phase_env() -> dict:
@@ -1102,24 +1131,40 @@ def time_flash_attention(dt) -> dict:
                 "float32 has no tensor-core path)")
 
 
-def time_flash_attention_bwd(dt) -> dict:
-    """The backward kernels at ``FA_LAYER`` (causal), dK/dV and dQ on each
-    route the type takes (``bwd_routes``), in the same call: each one's
-    device time (CUDA-graph replays), one eager wrapper call, its bound
-    and its plain version; the library call is SDPA's backward (all three
-    gradients, with autograd, backward only).  The ``tensor_cores`` dK/dV
-    launch is two kernels (the per-head partials, then their GQA sum): one
-    profiled call splits its device time between them."""
-    L = FA_LAYER
+def sdpa_backend(by_kernel: dict) -> str:
+    """The SDPA backend a profile's kernels belong to, by name."""
+    names = " ".join(by_kernel).lower()
+    for word, backend in (("cudnn", "CUDNN_ATTENTION"),
+                          ("flash", "FLASH_ATTENTION"),
+                          ("fmha", "EFFICIENT_ATTENTION")):
+        if word in names:
+            return backend
+    return "MATH"
+
+
+def time_flash_attention_bwd(dt, layer=FA_LAYER, mask=None,
+                             launches=GRAPH_LAUNCHES) -> dict:
+    """The backward kernels at ``layer`` (causal; ``mask``: a window and
+    a soft-cap), dK/dV and dQ on each route the type and head take
+    (``bwd_routes``), in the same call: each one's device time (replays
+    of a CUDA graph of ``launches`` calls), one eager wrapper call, its
+    bound and its plain version; the library call is SDPA's backward
+    (all three gradients, with autograd, backward only; without a
+    ``mask`` only, the function SDPA computes), with the backend it chose
+    (from one profiled call).  The ``tensor_cores`` dK/dV launch is two
+    kernels (the per-head partials, then their GQA sum): one profiled
+    call splits its device time between them."""
+    L = layer
     B, S, H, KV, hd = L["B"], L["S"], L["H"], L["KV"], L["hd"]
     gen = torch.Generator(device=DEV).manual_seed(2)
     q = torch.randn((B, S, H, hd), generator=gen, device=DEV).to(dt)
     k = torch.randn((B, S, KV, hd), generator=gen, device=DEV).to(dt)
     v = torch.randn((B, S, KV, hd), generator=gen, device=DEV).to(dt)
     dout = torch.randn((B, S, H, hd), generator=gen, device=DEV).to(dt)
-    out, lse = flash_attention_fwd_lse(q, k, v)
+    kw = {**dict(causal=True, window=0, q_offset=0, logit_cap=0.0),
+          **(mask or {})}
+    out, lse = flash_attention_fwd_lse(q, k, v, **kw)
     delta = bwd_delta(out, dout)
-    kw = dict(causal=True, window=0, q_offset=0, logit_cap=0.0)
     fns = {BWD_KERNELS[0]: lambda: bwd_delta(out, dout)}
     for route in bwd_routes(dt, hd):
         fns[f"{BWD_KERNELS[1]}:{route}"] = lambda r=route: bwd_dkdv(
@@ -1127,33 +1172,39 @@ def time_flash_attention_bwd(dt) -> dict:
         fns[f"{BWD_KERNELS[2]}:{route}"] = lambda r=route: bwd_dq(
             q, k, v, dout, lse, delta, route=r, **kw)
     plain_bwd = time_ms(lambda: flash_attention_bwd_ref(
-        q, k, v, out, lse, dout), 2, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    lib_out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib_grad = dout.transpose(1, 2)
+        q, k, v, out, lse, dout, **kw), 2, warmup=1)
+    lib_ms = backend = None
+    if not mask:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_grad = dout.transpose(1, 2)
 
-    def library():      # timed here only; the port never calls it
-        return torch.autograd.grad(lib_out, (qt, kt, vt), lib_grad,
-                                   retain_graph=True)
-    lib_ms = time_ms(library, 5)
-    fwd_ops, _ = flash_work(q.shape, k.shape, dt, causal=True)
+        def library():      # timed here only; the port never calls it
+            return torch.autograd.grad(lib_out, (qt, kt, vt), lib_grad,
+                                       retain_graph=True)
+        lib_ms = time_ms(library, 5)
+        backend = sdpa_backend(device_profile(library)["by_kernel"])
+    what = dict(causal=True, window=kw["window"], q_offset=0)
+    fwd_ops, _ = flash_work(q.shape, k.shape, dt, **what)
     peak = ALU_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
     # kernels/flash_attention.py bwd_work: each input read once, each
     # output written once; dK/dV makes S, dP, dV and dK (2x the forward's
     # products), dQ makes S, dP and dQ (1.5x)
-    work = {name: flash_bwd_work(name, q.shape, k.shape, dt, causal=True)
+    work = {name: flash_bwd_work(name, q.shape, k.shape, dt, **what)
             for name in BWD_KERNELS}
+    shape = (f"{str(dt)[6:]} B{B} S{S} H{H} KV{KV} hd{hd} causal"
+             + "".join(f" {n} {kw[n]}" for n in ("window", "logit_cap")
+                       if kw[n]))
     rows = {}
     for name, fn in fns.items():
         base = name.split(":")[0]
-        ms = device_ms(fn, GRAPH_LAUNCHES)
+        ms = device_ms(fn, launches)
         ops, nbytes = work[base]
         b_ms, by = bound(nbytes, ops, peak)
         rows[name] = dict(
-            shape=f"{str(dt)[6:]} B{B} S{S} H{H} KV{KV} hd{hd} causal",
-            ms=ms, wrapper_ms=time_ms(fn, 3),
+            shape=shape, ms=ms, wrapper_ms=time_ms(fn, 3),
             plain_ms=time_ms(lambda: (dout.float() * out.float()).sum(-1),
                              5) if base == BWD_KERNELS[0] else plain_bwd,
             bound_ms=b_ms, bound_by=by,
@@ -1175,27 +1226,34 @@ def time_flash_attention_bwd(dt) -> dict:
     n, nk = q.numel(), k.numel()
     b_total, b_total_by = bound((4 * n + 4 * nk) * q.element_size()
                                 + 4 * B * H * S, 2.5 * fwd_ops, peak)
-    return dict(dtype=str(dt)[6:], kernels=rows, backward_ms=by_route,
-                backward_tflops={r: 2.5 * fwd_ops / t / 1e9
-                                 for r, t in by_route.items()},
-                dkdv_tensor_cores_split_ms=split,
-                backward_bound_ms=b_total, backward_bound_by=b_total_by,
-                kernels_bound_ms={r: rows[BWD_KERNELS[0]]["bound_ms"] + sum(
-                    rows[f"{n}:{r}"]["bound_ms"] for n in BWD_KERNELS[1:])
-                    for r in by_route},
-                library_backward_ms=lib_ms,
-                library_tflops=2.5 * fwd_ops / lib_ms / 1e9,
-                plain_backward_ms=plain_bwd,
-                library="F.scaled_dot_product_attention(is_causal=True, "
-                        "enable_gqa=True) backward (dq, dk, dv) by "
-                        "torch.autograd.grad",
-                note="library_ms of dkdv and dq: SDPA's whole backward; "
-                     "plain_ms of dkdv and dq: the whole plain backward; "
-                     "backward_ms: D + dK/dV + dQ per route, beside "
-                     "backward_bound_ms (the whole backward's least "
-                     "work, 2.5x the forward's products) and "
-                     "kernels_bound_ms (the sum of the kernels' bounds); "
-                     "dkdv_tensor_cores_split_ms: one profiled call")
+    res = dict(dtype=str(dt)[6:], shape=shape, kernels=rows,
+               backward_ms=by_route,
+               backward_tflops={r: 2.5 * fwd_ops / t / 1e9
+                                for r, t in by_route.items()},
+               dkdv_tensor_cores_split_ms=split,
+               backward_bound_ms=b_total, backward_bound_by=b_total_by,
+               kernels_bound_ms={r: rows[BWD_KERNELS[0]]["bound_ms"] + sum(
+                   rows[f"{n}:{r}"]["bound_ms"] for n in BWD_KERNELS[1:])
+                   for r in by_route},
+               library_backward_ms=lib_ms, library_backend=backend,
+               library_tflops=2.5 * fwd_ops / lib_ms / 1e9 if lib_ms
+               else None,
+               plain_backward_ms=plain_bwd,
+               library="F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True) backward (dq, dk, dv) by "
+                       "torch.autograd.grad" if lib_ms else
+                       "none: SDPA has no soft-cap",
+               note="library_ms of dkdv and dq: SDPA's whole backward; "
+                    "plain_ms of dkdv and dq: the whole plain backward; "
+                    "backward_ms: D + dK/dV + dQ per route, beside "
+                    "backward_bound_ms (the whole backward's least "
+                    "work, 2.5x the forward's products) and "
+                    "kernels_bound_ms (the sum of the kernels' bounds); "
+                    "dkdv_tensor_cores_split_ms: one profiled call")
+    del q, k, v, dout, out, lse, delta, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_kernel_times(configs) -> dict:
@@ -1261,7 +1319,15 @@ def phase_kernel_times(configs) -> dict:
         flash_attention=[time_flash_attention(torch.bfloat16),
                          time_flash_attention(torch.float32)],
         flash_attention_bwd=[time_flash_attention_bwd(torch.bfloat16),
-                             time_flash_attention_bwd(torch.float32)])
+                             time_flash_attention_bwd(torch.float32)],
+        # gemma2's layer: causal (where SDPA computes the same function),
+        # then with its window and soft-cap, the kernels alone
+        flash_attention_bwd_hd256=[
+            time_flash_attention_bwd(torch.bfloat16, GEMMA2_LAYER,
+                                     launches=GEMMA2_BWD_LAUNCHES),
+            time_flash_attention_bwd(torch.bfloat16, GEMMA2_LAYER,
+                                     GEMMA2_MASK,
+                                     launches=GEMMA2_BWD_LAUNCHES)])
 
 
 # --------------------------------------------------------------------------
@@ -2939,15 +3005,22 @@ def phase_serve(card: str) -> dict:
 # --------------------------------------------------------------------------
 
 # (name, B, Sq, Sk, H, KV, hd, keywords): each in float32, bfloat16 and
-# float16.  hd 64, 80, 128, 256; GQA groups 1 and 6; Sq = Sk and Sq < Sk
-# with q_offset; window and logit_cap (gemma2); lengths no tile divides;
-# rows that see no key; a batch whose B x H fills the card
+# float16.  hd 64, 80, 128, 200, 256; GQA groups 1, 2 and 6; Sq = Sk and
+# Sq < Sk with q_offset; window and logit_cap (gemma2); lengths no tile
+# divides; rows that see no key; a batch whose B x H fills the card
 FA_BWD_GRID = [
     ("g6 hd128 ragged", 1, 200, 200, 12, 2, 128, {}),
     ("g1 hd64 cap", 2, 130, 130, 4, 4, 64, dict(logit_cap=30.0)),
     ("g6 hd80 window", 1, 150, 150, 6, 1, 80, dict(window=37)),
     ("hd256 window cap", 1, 100, 100, 4, 2, 256,
      dict(window=40, logit_cap=50.0)),
+    # gemma2's head: GQA group 2 with ragged lengths; q_offset with its
+    # window and soft-cap
+    ("hd256 g2 ragged", 1, 200, 200, 8, 4, 256, {}),
+    ("hd256 q_offset window cap", 1, 70, 197, 8, 4, 256,
+     dict(q_offset=127, window=64, logit_cap=50.0)),
+    # a head between 128 and 256: the last 64-column chunk partly zeros
+    ("hd200 g2 q_offset", 1, 90, 130, 4, 2, 200, dict(q_offset=40)),
     ("g6 q_offset", 2, 70, 197, 6, 1, 128, dict(q_offset=127)),
     ("q_offset window cap", 1, 33, 97, 6, 6, 64,
      dict(q_offset=64, window=16, logit_cap=30.0)),
@@ -3084,12 +3157,16 @@ def grid_flash_attention_bwd() -> dict:
     grid += [("layer", L["B"], L["S"], L["S"], L["H"], L["KV"], L["hd"], dt,
               {}) for dt in (torch.float32, torch.bfloat16)]
     worst = dict(max_abs_err={n: 0.0 for n in BWD_ROUTED},
+                 max_abs_err_hd256={n: 0.0 for n in BWD_ROUTED},
                  lse_rel_err=0.0, rel_err_vs_float64_autograd={},
                  runs={r: 0 for r in BWD_ROUTES})
     for case in grid:
         r = bwd_grid_case(*case, gen)
         for n, e in r["max_abs_err"].items():
             worst["max_abs_err"][n] = max(worst["max_abs_err"][n], e)
+            if case[6] > 128:         # the hd-256 tiling's cases apart
+                worst["max_abs_err_hd256"][n] = max(
+                    worst["max_abs_err_hd256"][n], e)
         worst["lse_rel_err"] = max(worst["lse_rel_err"], r["lse_rel_err"])
         by = worst["rel_err_vs_float64_autograd"]
         dtn = str(case[7])[6:]
@@ -3146,20 +3223,18 @@ def lm_grad_check() -> dict:
                 launches=launches)
 
 
-def lm_grad_check_bf16() -> dict:
-    """qwen2-1.5b at full width in bfloat16: ``Model.loss``'s gradient at
-    ``LM_GRAD`` through the kernels (the ``tensor_cores`` backward, one
-    launch of each per layer) against g32, the float32 gradient of a
-    float32 copy of the same weights through the plain attention.  Each
-    leaf: ||g - g32|| <= LM_GRAD16_FACTOR ||g_plain16 - g32|| +
-    LM_GRAD16_FLOOR ||g32||, with g_plain16 the bfloat16 gradient through
-    the plain attention (PERF.md §2's bf16-logits rule: the kernels'
-    rounding of P and dS may add to a bf16 backward's error, not dominate
-    it)."""
-    cfg = get_config(LM_ARCH)
-    check(cfg.dtype == torch.bfloat16, f"{LM_ARCH} is not bfloat16")
+def lm_grad_check_bf16(cfg, B: int, S: int) -> dict:
+    """``cfg`` (qwen2-1.5b at full width; gemma2-2b's published widths at
+    2 of its layers) in bfloat16: ``Model.loss``'s gradient at B x S
+    through the kernels (the ``tensor_cores`` backward, one launch of
+    each per layer) against g32, the float32 gradient of a float32 copy
+    of the same weights through the plain attention.  Each leaf: ||g -
+    g32|| <= LM_GRAD16_FACTOR ||g_plain16 - g32|| + LM_GRAD16_FLOOR
+    ||g32||, with g_plain16 the bfloat16 gradient through the plain
+    attention (PERF.md §2's bf16-logits rule: the kernels' rounding of P
+    and dS may add to a bf16 backward's error, not dominate it)."""
+    check(cfg.dtype == torch.bfloat16, f"{cfg.name} is not bfloat16")
     model = lm_model(cfg)
-    B, S = LM_GRAD
     toks = lm_tokens(cfg, B, S + 1)
     counted = BWD_KERNELS[1:] + tuple(f"{n}:{r}" for n in BWD_KERNELS[1:]
                                       for r in BWD_ROUTES)
@@ -3194,10 +3269,11 @@ def lm_grad_check_bf16() -> dict:
     del g_k, g_p, g_32
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(dtype="bfloat16", B=B, S=S, loss_kernels=loss_k,
-                loss_plain=loss_p, loss_float32=loss_32, leaves=rows,
-                max_share_of_bar=worst, factor=LM_GRAD16_FACTOR,
-                floor=LM_GRAD16_FLOOR, launches=launches)
+    return dict(arch=cfg.name, layers=cfg.n_layers, dtype="bfloat16", B=B,
+                S=S, loss_kernels=loss_k, loss_plain=loss_p,
+                loss_float32=loss_32, leaves=rows, max_share_of_bar=worst,
+                factor=LM_GRAD16_FACTOR, floor=LM_GRAD16_FLOOR,
+                launches=launches)
 
 
 def train_argv(steps: int, ckpt_dir=None) -> list:
@@ -3313,10 +3389,12 @@ def lm_train_run(card: str) -> dict:
               f"training: the loss did not fall ({first5} -> {last5})")
         step_s = statistics.median(first.step_seconds[t["warm"]:])
         state_bytes = lm_dryrun.state_bytes(first.state)
-        prof = device_profile(lambda: first.step_fn(
-            first.state, first.pipeline.batch_at(t["steps"])))
+        # kept before the profiled step, which updates the donated state
+        # in place
         kept = tree_map(lambda x: None if x is None else
                         x.detach().cpu(), first.state)
+        prof = device_profile(lambda: first.step_fn(
+            first.state, first.pipeline.batch_at(t["steps"])))
         first_s = time.perf_counter() - t0
         del first
         gc.collect()
@@ -3407,7 +3485,7 @@ def phase_lm_train(card: str) -> dict:
     grad = lm_grad_check()
     grad["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    grad16 = lm_grad_check_bf16()
+    grad16 = lm_grad_check_bf16(get_config(LM_ARCH), *LM_GRAD)
     grad16["seconds"] = time.perf_counter() - t0
     train = lm_train_run(card)
     return dict(phase="lm_train", arch=LM_ARCH, card=card, grid=grid,
@@ -3422,6 +3500,123 @@ def phase_lm_train(card: str) -> dict:
                 launches={k: _build.LAUNCH_COUNTS[k]
                           for k in ("flash_attention",) + BWD_KERNELS
                           + BWD_ROUTED[1:]})
+
+
+# --------------------------------------------------------------------------
+# phase: gemma2_train — gemma2-2b (head dim 256) trained at published widths
+# --------------------------------------------------------------------------
+
+#: training through launch/train.py at gemma2-2b's published widths and
+#: depth, bf16 params and float32 masters: the global batch and length
+#: (for the card's 80 GB: 36.6 GB of params and AdamW state and 10.5 GB of
+#: float32 gradient sums at 2.6 B params; 2 x 1024 peaked at 67.3 GB,
+#: which left over 15 GB, so the length is 1536), the microbatches, the
+#: steps and the warm steps left out of the median
+GEMMA2_TRAIN = dict(batch=2, seq=1536, microbatches=2, steps=12, warm=2)
+#: the gradient check of the windowed layers: gemma2's widths at 2 of its
+#: 26 layers (layer 0 local, window 4096; layer 1 global) at B x S, long
+#: enough that the window cuts the last S - 4096 queries of layer 0
+GEMMA2_GRAD = dict(layers=2, B=1, S=6144)
+
+
+def gemma2_train_run() -> dict:
+    """``launch.train`` at gemma2-2b's published widths (26 layers):
+    the reference's lines, one forward and three backward launches per
+    layer and microbatch (dK/dV and dQ on the ``tensor_cores`` route,
+    head dim 256), the loss falling (the mean of the last 3 steps below
+    that of the first 3), ms per step (the median after the warm steps),
+    tokens/s, the model-FLOP share, peak memory, one more step
+    profiled."""
+    t = GEMMA2_TRAIN
+    cfg = get_config(GEMMA2_ARCH)
+    counted = ("flash_attention",) + BWD_KERNELS + BWD_ROUTED[1:]
+    argv = ["--arch", GEMMA2_ARCH, "--steps", str(t["steps"]), "--batch",
+            str(t["batch"]), "--seq", str(t["seq"]), "--microbatches",
+            str(t["microbatches"]), "--log-every", "1", "--device", "cuda"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # counts to 0 just before the path, read just after
+    _build.reset_launch_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        run = lm_trainer.run(argv)
+    launches = {n: _build.LAUNCH_COUNTS[n] for n in counted}
+    peak = torch.cuda.max_memory_allocated()
+    per_run = cfg.n_layers * t["microbatches"] * t["steps"]
+    want = {n: per_run if ":" not in n or n.endswith(TENSOR_CORES) else 0
+            for n in counted}
+    check(launches == want,
+          f"gemma2 training: launches {launches}, not {per_run} of each "
+          f"kernel ({cfg.n_layers} layers x {t['microbatches']} "
+          f"microbatches x {t['steps']} steps; dK/dV and dQ on the "
+          f"tensor_cores route)")
+    check(train_lines_ok(printed.getvalue(), t["steps"]),
+          f"gemma2 training printed {printed.getvalue()[:300]!r}")
+    losses = run.losses
+    first3, last3 = statistics.mean(losses[:3]), statistics.mean(
+        losses[-3:])
+    check(all(math.isfinite(x) for x in losses) and last3 < first3,
+          f"gemma2 training: the loss did not fall ({first3} -> {last3})")
+    step_s = statistics.median(run.step_seconds[t["warm"]:])
+    run_s = time.perf_counter() - t0
+    state_bytes = lm_dryrun.state_bytes(run.state)
+    prof = device_profile(lambda: run.step_fn(
+        run.state, run.pipeline.batch_at(t["steps"])))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = t["batch"] * t["seq"]
+    n_active = cfg.active_param_count()
+    return dict(
+        dtype="bfloat16 params, float32 masters",
+        algorithms="not deterministic", **{
+            k: t[k] for k in ("batch", "seq", "microbatches", "steps")},
+        warm_steps=t["warm"], tokens_per_step=tokens, losses=losses,
+        loss_first3=first3, loss_last3=last3, ms_per_step=step_s * 1e3,
+        tokens_per_s=tokens / step_s,
+        model_flop_share=6.0 * n_active * tokens / (step_s * BF16_OPS_PER_S),
+        active_params=n_active, max_memory_allocated=peak,
+        free_of_card=torch.cuda.get_device_properties(0).total_memory
+        - peak, state_bytes=state_bytes, launches=launches,
+        profile=dict(wall_ms=prof["wall_ms"],
+                     device_busy_ms=prof["device_busy_ms"],
+                     idle_share=prof["idle_share"],
+                     kernels=prof["kernels"],
+                     device_ms_by_family=device_families(prof["by_kernel"]),
+                     top_kernels=top_kernels(prof["by_kernel"], 8)),
+        run_s=run_s, seconds=time.perf_counter() - t0)
+
+
+def phase_gemma2_train(card: str) -> dict:
+    """gemma2-2b, the one registered model with head dim 256, on the
+    hd-256 tiling of the tensor-core backward: the bf16 gradient check of
+    its windowed layer at 2 of its 26 layers (``GEMMA2_GRAD``), then
+    training at published widths (``GEMMA2_TRAIN``)."""
+    gc.collect()                      # the earlier phases' models
+    torch.cuda.empty_cache()
+    cfg = get_config(GEMMA2_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.d_ff, cfg.vocab, cfg.sliding_window, cfg.attn_softcap) ==
+          (26, 2304, 8, 4, 256, 9216, 256000, 4096, 50.0),
+          f"{GEMMA2_ARCH} is not at its published width")
+    check(bwd_route_for(cfg.dtype, cfg.hd) == TENSOR_CORES,
+          f"{GEMMA2_ARCH}'s backward is not on the tensor_cores route")
+    g = GEMMA2_GRAD
+    check(g["S"] > cfg.sliding_window, "the window does not cut")
+    t0 = time.perf_counter()
+    grad16 = lm_grad_check_bf16(
+        dataclasses.replace(cfg, n_layers=g["layers"]), g["B"], g["S"])
+    grad16["seconds"] = time.perf_counter() - t0
+    grad16["window_cuts_queries"] = g["S"] - cfg.sliding_window
+    train = gemma2_train_run()
+    return dict(phase="gemma2_train", arch=GEMMA2_ARCH, card=card,
+                gradient_bf16=grad16, train=train,
+                note="ms_per_step: host clock, median after the warm "
+                     "steps, each step ending when its loss reaches the "
+                     "host; model_flop_share: 6 N_active tokens / (step s "
+                     "x 989e12); the profile: one more step of the same "
+                     "run; launches: the training run's",
+                launches=train["launches"])
 
 
 # --------------------------------------------------------------------------
@@ -3841,6 +4036,8 @@ KERNEL_META = {
 #: plain scanned attention with jax.vjp
 BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 BWD_TC_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"
+BWD_TC256_SOURCE = \
+    "src/repro_torch/kernels/csrc/flash_attention_bwd_tc256.cu"
 BWD_REPLACES = "src/repro/models/attention.py:66"
 
 
@@ -3879,13 +4076,16 @@ def main() -> None:
           f"serve: launches {serve['launches']}")
     train = phase_lm_train(env["nvidia_smi"])
     emit(train)
+    gemma2 = phase_gemma2_train(env["nvidia_smi"])
+    emit(gemma2)
     launch = phase_launch(env["nvidia_smi"], train, lm)
     emit(launch)
     phases = dict(main_path=main_path, sira_flow=sira, qat_chain=qat,
                   examples=examples, lm_prefill=lm, lm_families=fam,
-                  serve=serve, lm_train=train, launch=launch)
+                  serve=serve, lm_train=train, gemma2_train=gemma2,
+                  launch=launch)
     launches = dict(main_path["launches"], **lm["launches"])
-    for phase in (examples, fam, serve, train, launch):
+    for phase in (examples, fam, serve, train, gemma2, launch):
         launches["flash_attention"] += phase["launches"]["flash_attention"]
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -3911,14 +4111,37 @@ def main() -> None:
             replaces=BWD_REPLACES,
             note="no TPU kernel: the reference differentiates its plain "
                  "attention with jax.vjp; dK/dV and dQ per route "
-                 "(tensor_cores: bf16/f16, hd <= 128; cuda_cores: float32 "
-                 "and hd > 128, forced here at bf16 to time it)",
+                 "(tensor_cores: bf16/f16, hd <= 256, here the hd <= 128 "
+                 "tiling; cuda_cores: float32, forced here at bf16 to "
+                 "time it)",
             launches=train["launches"][name]
             + launch["launches"].get(name, 0),
+            # gemma2's launches are the hd-256 tiling's (the rows below)
             launches_by_path={k: ph["launches"].get(name, 0)
-                              for k, ph in phases.items()},
+                              for k, ph in phases.items()
+                              if k != "gemma2_train"},
             max_abs_err=train["grid"]["max_abs_err"][name], ms=t["ms"],
             wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], shape=t["shape"]))
+    # the tensor_cores route's hd-256 tiling, on gemma2's path
+    for name in BWD_ROUTED[1:]:
+        if not name.endswith(TENSOR_CORES):
+            continue
+        t = times["flash_attention_bwd_hd256"][0]["kernels"][name]
+        check(gemma2["launches"][name] > 0,
+              f"{name} at hd 256 was not launched on the gemma2 path")
+        kernels.append(dict(
+            name=f"{name} hd256", route="cuda", source=BWD_TC256_SOURCE,
+            replaces=BWD_REPLACES,
+            note="no TPU kernel: the reference differentiates its plain "
+                 "attention with jax.vjp; the tensor_cores route for "
+                 "128 < hd <= 256 (gemma2-2b), its two warpgroups "
+                 "splitting the head",
+            launches=gemma2["launches"][name],
+            launches_by_path={"gemma2_train": gemma2["launches"][name]},
+            max_abs_err=train["grid"]["max_abs_err_hd256"][name],
+            ms=t["ms"], wrapper_ms=t["wrapper_ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"]))
     emit(dict(kernels=kernels), timed=False)

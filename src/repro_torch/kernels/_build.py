@@ -32,10 +32,11 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("int_matmul.cu", "multithreshold.cu", "quantize.cu",
            "flash_attention.cu", "flash_attention_bwd.cu",
-           "flash_attention_bwd_tc.cu")
+           "flash_attention_bwd_tc.cu", "flash_attention_bwd_tc256.cu")
 #: headers the sources include: part of the build's hash, so an edit to
 #: one rebuilds the library
-HEADERS = ("hopper.cuh", "flash_tc.cuh", "flash_bwd.cuh")
+HEADERS = ("hopper.cuh", "flash_tc.cuh", "flash_bwd.cuh",
+           "flash_bwd_tc.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -177,6 +178,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sira_flash_bwd_dq_tc.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                          i, ll, ll, i, f, f, i, p]
     lib.sira_flash_bwd_dq_tc.restype = i
+    lib.sira_flash_bwd_dkdv_tc256.argtypes = \
+        lib.sira_flash_bwd_dkdv_tc.argtypes
+    lib.sira_flash_bwd_dkdv_tc256.restype = i
+    lib.sira_flash_bwd_dq_tc256.argtypes = lib.sira_flash_bwd_dq_tc.argtypes
+    lib.sira_flash_bwd_dq_tc256.restype = i
 
 
 def load() -> ctypes.CDLL:

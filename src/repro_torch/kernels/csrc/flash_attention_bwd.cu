@@ -31,8 +31,11 @@
 // Two routes for dK/dV and dQ, chosen by the wrapper before launch
 // (kernels/flash_attention.py route_for) and counted apart.  This file
 // holds D and the cuda_cores route; flash_attention_bwd_tc.cu the
-// tensor_cores route (a source of its own, so the two compile at the same
-// time); flash_bwd.cuh what both share (tile ranges, mask, arguments).
+// tensor_cores route for hd <= 128 and flash_attention_bwd_tc256.cu for
+// 128 < hd <= 256 (sources of their own, so they compile at the same
+// time; its note gives that tiling's design); flash_bwd.cuh what all
+// share (tile ranges, mask, arguments), flash_bwd_tc.cuh what the two
+// tensor-core sources share.
 //
 // tensor_cores: bfloat16 / float16 with hd <= 128 (hd % 8 == 0, padded
 //   to 64 or 128 with zeros by TMA's out-of-bounds fill), after
@@ -74,9 +77,8 @@
 //   other; the two warpgroups overlap through the scheduler.
 //
 // cuda_cores: float32 (exact float32 has no tensor-core path; TF32 would
-//   miss the float32 gradient bar) and hd > 128 (gemma2's 256, where the
-//   dK and dV accumulators of 64 keys x 256 dims would need 256 float32
-//   registers a thread).  `flash_bwd_dkdv`: one block per (key tile,
+//   miss the float32 gradient bar); bf16/f16 only when forced.
+//   `flash_bwd_dkdv`: one block per (key tile,
 //   batch x KV head) walks every query tile of every query head of its
 //   GQA group, so the group's sum stays in the block; `flash_bwd_dq`:
 //   one block per (query tile, batch x head) walks the key tiles.  Every

@@ -1,5 +1,6 @@
 // Tensor-core building blocks of the 16-bit attention kernels
-// (flash_attention.cu's forward, flash_attention_bwd.cu's dK/dV and dQ):
+// (flash_attention.cu's forward, flash_attention_bwd_tc.cu's and
+// flash_attention_bwd_tc256.cu's dK/dV and dQ):
 // the wgmma m64nNk16 instructions with float32 accumulators (Mma), the
 // packing of two float32 values into one 16-bit A-fragment register
 // (pack2), the TMA element type of a 16-bit type (TmaType) and the 4-D
@@ -33,7 +34,9 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
 
 // wgmma m64nNk16, float32 accumulators.  ss: A and B from shared memory,
 // both K-major (S = Q K^T).  rs: A from registers, B from shared memory
-// MN-major (the transpose bit; O += P V).
+// MN-major (the transpose bit; O += P V).  ss_tb (N = 128): A K-major and
+// B MN-major, both from shared memory, accumulating (the hd-256
+// backward's dV += P^T dO, dK += dS^T Q, dQ += dS K).
 #define SIRA_R32 \
     "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
     " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29," \
@@ -93,6 +96,14 @@ struct Mma<__nv_bfloat16, 128> {
             : SIRA_D64
             : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
     }
+    static __device__ __forceinline__ void ss_tb(float (&d)[64], uint64_t a,
+                                                 uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+            SIRA_R64 ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+            : SIRA_D64 : "l"(a), "l"(b), "r"(1));
+    }
 };
 
 template <>
@@ -134,6 +145,14 @@ struct Mma<__half, 128> {
             SIRA_R64 ", {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
             : SIRA_D64
             : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+    }
+    static __device__ __forceinline__ void ss_tb(float (&d)[64], uint64_t a,
+                                                 uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+            SIRA_R64 ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+            : SIRA_D64 : "l"(a), "l"(b), "r"(1));
     }
 };
 

@@ -19,13 +19,14 @@ On the card, a call that needs a gradient goes through
 :class:`FlashAttention`: its forward is the same kernel, which then also
 writes each query row's log-sum-exp, and its backward is three kernels of
 ``csrc/flash_attention_bwd.cu`` (D = rowsum(dO·out), dK/dV, dQ; the
-tensor-core dK/dV and dQ in ``csrc/flash_attention_bwd_tc.cu``), whose
-plain version is ``ref.flash_attention_bwd_ref``; :func:`grad_tolerance`
-bounds them against it.  dK/dV and dQ have two routes, which
-:func:`route_for` picks from the type and head dim: ``tensor_cores``
-(bfloat16/float16 with ``hd <= 128``: wgmma and TMA, P and dS rounded to
-16 bits before their products) and ``cuda_cores`` (float32, and
-``hd > 128``: float32 FMAs).
+tensor-core dK/dV and dQ in ``csrc/flash_attention_bwd_tc.cu`` for
+``hd <= 128`` and ``csrc/flash_attention_bwd_tc256.cu`` for
+``128 < hd <= 256``), whose plain version is
+``ref.flash_attention_bwd_ref``; :func:`grad_tolerance` bounds them
+against it.  dK/dV and dQ have two routes, which :func:`route_for` picks
+from the type: ``tensor_cores`` (bfloat16/float16: wgmma and TMA, P and
+dS rounded to 16 bits before their products) and ``cuda_cores``
+(float32: float32 FMAs).
 """
 from __future__ import annotations
 
@@ -48,21 +49,34 @@ MAX_HEAD_DIM = 256
 #: half an ulp of one softmax weight P in the 16-bit kernel: the largest
 #: relative rounding of P before P·V
 P_ROUNDING = {torch.bfloat16: 2.0 ** -9, torch.float16: 2.0 ** -11}
-#: the widest head the tensor-core backward takes (its dK and dV
-#: accumulators of 64 keys x hd stay in registers)
-TC_BWD_MAX_HEAD_DIM = 128
-#: keys a block of the tensor-core dK/dV kernel
-_TC_BK = 128
+#: the widest head the tensor-core backward takes.  Up to
+#: :data:`TC_BWD_SPLIT_HEAD_DIM` each consumer warpgroup of a block owns
+#: 64 keys (dK/dV) or 64 query rows (dQ) over the whole head, its
+#: accumulators of hd floats a thread in registers
+#: (``csrc/flash_attention_bwd_tc.cu``); above it, up to 256 (gemma2's
+#: head), the two warpgroups split the head dim instead: a block of 64
+#: keys or rows, each warpgroup holding dK and dV (128 floats a thread) or
+#: dQ (64) of its 128 columns, P and dS handed between them through
+#: shared memory (``csrc/flash_attention_bwd_tc256.cu``)
+TC_BWD_MAX_HEAD_DIM = 256
+TC_BWD_SPLIT_HEAD_DIM = 128
+
+
+def _tc_bk(hd: int) -> int:
+    """Keys a block of the tensor-core dK/dV kernel for head dim ``hd``."""
+    return 128 if hd <= TC_BWD_SPLIT_HEAD_DIM else 64
 
 
 def route_for(dtype: torch.dtype, hd: int) -> str:
     """The route of the backward's dK/dV and dQ kernels for inputs of
     ``dtype`` and head dim ``hd`` on the card: ``tensor_cores`` for
-    bfloat16/float16 with ``hd <= 128``; ``cuda_cores`` for float32 (exact
-    float32 has no tensor-core path, and TF32 would miss the float32 bar
-    of :func:`grad_tolerance`) and for ``hd > 128`` (gemma2's 256: dK and
-    dV of 64 keys x 256 dims would need 256 float32 registers a thread).
-    Never chosen on failure."""
+    bfloat16/float16 with ``hd <= 256`` (:data:`TC_BWD_MAX_HEAD_DIM`; up
+    to 128 a block's two warpgroups split its keys or rows, above 128 the
+    head dim, since dK and dV of 64 keys x 256 dims would need 256 float32
+    registers a thread); ``cuda_cores`` for float32 (exact float32 has no
+    tensor-core path, and TF32 would miss the float32 bar of
+    :func:`grad_tolerance`) and for heads past 256, which no kernel of the
+    backward takes.  Never chosen on failure."""
     if dtype in P_ROUNDING and hd <= TC_BWD_MAX_HEAD_DIM:
         return TENSOR_CORES
     return CUDA_CORES
@@ -380,7 +394,8 @@ def bwd_dkdv(q, k, v, dout, lse, delta, *, causal, window, q_offset,
     route = _bwd_route(q, route)
     scratch = None
     if route == TENSOR_CORES:
-        _build.check_grid("flash_attention_bwd_dkdv", B * H, -(-Sk // _TC_BK))
+        _build.check_grid("flash_attention_bwd_dkdv", B * H,
+                          -(-Sk // _tc_bk(hd)))
         if H != KV:
             scratch = torch.empty((2, B, Sk, H, hd), dtype=torch.float32,
                                   device=q.device)
@@ -402,9 +417,11 @@ def bwd_dkdv(q, k, v, dout, lse, delta, *, causal, window, q_offset,
     with torch.cuda.device(q.device):
         lib = _build.load()
         if route == TENSOR_CORES:
-            err = lib.sira_flash_bwd_dkdv_tc(
-                *ptrs, None if scratch is None else scratch.data_ptr(),
-                *args)
+            fn = lib.sira_flash_bwd_dkdv_tc \
+                if hd <= TC_BWD_SPLIT_HEAD_DIM \
+                else lib.sira_flash_bwd_dkdv_tc256
+            err = fn(*ptrs, None if scratch is None
+                     else scratch.data_ptr(), *args)
         else:
             err = lib.sira_flash_bwd_dkdv(*ptrs, *args)
     _build.check_launch("flash_attention_bwd_dkdv", err)
@@ -425,8 +442,12 @@ def bwd_dq(q, k, v, dout, lse, delta, *, causal, window, q_offset,
         return dq
     with torch.cuda.device(q.device):
         lib = _build.load()
-        fn = lib.sira_flash_bwd_dq_tc if route == TENSOR_CORES \
-            else lib.sira_flash_bwd_dq
+        if route != TENSOR_CORES:
+            fn = lib.sira_flash_bwd_dq
+        elif hd <= TC_BWD_SPLIT_HEAD_DIM:
+            fn = lib.sira_flash_bwd_dq_tc
+        else:
+            fn = lib.sira_flash_bwd_dq_tc256
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                  *_bwd_args(q, k, causal, window, q_offset, logit_cap))

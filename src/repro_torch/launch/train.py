@@ -10,8 +10,10 @@ card, under ``torch.use_deterministic_algorithms(True)``).
 The flags, defaults and printed lines are the reference's, plus
 ``--device`` (default ``cuda``; raises without a card).  The step is a
 plain eager call of ``make_train_step`` (``remat=False``, as the
-reference's): every attention layer runs the flash-attention kernel
-forward and its backward kernels on a card.
+reference's) that takes the state donated, as the reference's jitted
+step does (AdamW updates the masters and moments in place: gemma2-2b's
+state then fits one 80 GB card): every attention layer runs the
+flash-attention kernel forward and its backward kernels on a card.
 
   python -m repro_torch.launch.train --arch qwen2-1.5b --steps 20 \\
       --batch 2 --seq 2048 --microbatches 2 --ckpt-dir /tmp/ckpt
@@ -95,9 +97,11 @@ def run(argv=None) -> TrainRun:
             start_step = extra.get("data_step", step_of(ck))
             print(f"resumed from {ck} at step {start_step}", flush=True)
 
+    # the state is donated to the step, as the reference donates it to its
+    # jitted step (donate_argnums=(0,)): AdamW updates it in place
     step_fn = make_train_step(
         model, optimizer, microbatches=args.microbatches, quant=quant,
-        remat=False, compress=args.compress_grads)
+        remat=False, compress=args.compress_grads, donate=True)
 
     losses: List[float] = []
     step_s: List[float] = []

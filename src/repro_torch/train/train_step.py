@@ -105,7 +105,8 @@ def make_train_step(model, optimizer: AdamW, *,
                     quant: Optional[QuantSpec] = None,
                     remat: bool = True,
                     compress: bool = False,
-                    return_grads: bool = False):
+                    return_grads: bool = False,
+                    donate: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch: tokens/labels (B_global, S) (+ optional frontend_embed), numpy
@@ -116,7 +117,11 @@ def make_train_step(model, optimizer: AdamW, *,
     does.  metrics: ``loss``, ``grad_norm``, ``lr`` (0-d tensors), and
     with ``return_grads`` ``grads``: the gradient AdamW takes (before
     clipping; under a layout the rank's blocks of the data-averaged
-    one)."""
+    one).  ``donate``: the caller gives up ``state``, whose AdamW
+    masters and moments the step then updates in place (``AdamW.update``'s
+    ``in_place``; the reference's launcher donates its state to the
+    jitted step, ``donate_argnums=(0,)``): the same values, without the
+    old and the new optimizer state held at once."""
 
     def loss_and_grads(params, mb):
         flat, spec = flatten(params)
@@ -171,7 +176,8 @@ def make_train_step(model, optimizer: AdamW, *,
             if compress:
                 grads, ef = compress_grads(grads, ef)
             new_params, new_opt = optimizer.update(grads, state.opt,
-                                                   state.params)
+                                                   state.params,
+                                                   in_place=donate)
             with torch.no_grad():
                 gnorm = torch.sqrt(sum(torch.sum(torch.square(
                     g.to(torch.float32))) for g in leaves(grads)))
@@ -207,7 +213,8 @@ def make_train_step(model, optimizer: AdamW, *,
                 grads, ef = compress_grads(grads, ef, amax=functools.partial(
                     layout.max, axis=("model", "data")))
             blocks, new_opt = optimizer.update(grads, state.opt,
-                                               state.params, gnorm=gnorm)
+                                               state.params, gnorm=gnorm,
+                                               in_place=donate)
         with torch.no_grad(), get_tracer().span("param_gather"):
             flat, spec = flatten(blocks)
             new_params = unflatten(spec, [

@@ -21,6 +21,9 @@ numpy inputs made from a seed.
   ``grad_tolerance`` with its rounding term of the plain backward and of
   ``jax.vjp``; ``ref.flash_attention_bwd_magnitudes`` against float64;
   ``route_for``.
+- gemma2's head dim 256 (``HD256_CASES``: B=1, S=96, H=4, KV=2; window,
+  soft-cap, q_offset), which the tensor-core route takes with its second
+  tiling: the same checks at that head.
 """
 import jax
 import jax.numpy as jnp
@@ -56,7 +59,18 @@ DEAD_CASES = {
                                                       window=4)),
     "some rows see no key": (1, 8, 12, 2, 1, 8, dict(q_offset=-4)),
 }
+# gemma2's head (hd 256; its window and soft-cap scaled to S=96), the
+# tensor_cores route's tiling for 128 < hd <= 256
+HD256_CASES = {
+    "hd256 causal": (1, 96, 96, 4, 2, 256, {}),
+    "hd256 window cap": (1, 96, 96, 4, 2, 256,
+                         dict(window=40, logit_cap=50.0)),
+    "hd256 q_offset window cap": (1, 96, 160, 4, 2, 256,
+                                  dict(q_offset=64, window=40,
+                                       logit_cap=50.0)),
+}
 DEFAULTS = dict(causal=True, window=0, q_offset=0, logit_cap=0.0)
+ALL_CASES = {**CASES, **DEAD_CASES, **HD256_CASES}
 
 
 def _inputs(seed, B, Sq, Sk, H, KV, hd, dtype=np.float64):
@@ -76,9 +90,9 @@ def _autograd(q, k, v, dout, kw):
     return out.detach(), torch.autograd.grad(out, x, _t(dout))
 
 
-@pytest.mark.parametrize("case", list(CASES) + list(DEAD_CASES))
+@pytest.mark.parametrize("case", list(ALL_CASES))
 def test_plain_backward_equals_autograd_float64(case):
-    B, Sq, Sk, H, KV, hd, kw = {**CASES, **DEAD_CASES}[case]
+    B, Sq, Sk, H, KV, hd, kw = ALL_CASES[case]
     q, k, v, dout = _inputs(len(case), B, Sq, Sk, H, KV, hd)
     out, want = _autograd(q, k, v, dout, kw)
     lse = tref.flash_attention_lse_ref(_t(q), _t(k), **kw)
@@ -126,9 +140,9 @@ def _j_scores(q, k, *, causal, window, q_offset, logit_cap):
     return jnp.where(mask[None, :, None, None, :], s, -1e30)
 
 
-@pytest.mark.parametrize("case", list(CASES) + list(DEAD_CASES))
+@pytest.mark.parametrize("case", list(ALL_CASES))
 def test_plain_lse_matches_jax_logsumexp(case):
-    B, Sq, Sk, H, KV, hd, kw = {**CASES, **DEAD_CASES}[case]
+    B, Sq, Sk, H, KV, hd, kw = ALL_CASES[case]
     q, k, _, _ = _inputs(len(case), B, Sq, Sk, H, KV, hd, np.float32)
     got = tref.flash_attention_lse_ref(_t(q), _t(k), **kw)
     assert got.dtype == torch.float32
@@ -138,13 +152,14 @@ def test_plain_lse_matches_jax_logsumexp(case):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(CASES) + list(HD256_CASES))
 def test_plain_backward_matches_jax_vjp(case):
     """float32: the plain backward (fed the port's plain out and lse)
     against ``jax.vjp`` of the reference's scanned attention, chunked by
     a chunk that divides no length given (the scan takes the largest
-    divisor below it)."""
-    B, Sq, Sk, H, KV, hd, kw = CASES[case]
+    divisor below it), within 1e-5 of each gradient's largest element
+    (float32 sums in another order); at hd 256 too."""
+    B, Sq, Sk, H, KV, hd, kw = {**CASES, **HD256_CASES}[case]
     q, k, v, dout = _inputs(len(case) + 1, B, Sq, Sk, H, KV, hd,
                             np.float32)
     full = {**DEFAULTS, **kw}
@@ -265,7 +280,7 @@ def _rounded_bwd(q, k, v, out, lse, dout, kw):
 
 
 @pytest.mark.parametrize("dtype", _16BIT)
-@pytest.mark.parametrize("case", list(CASES) + list(DEAD_CASES))
+@pytest.mark.parametrize("case", list(ALL_CASES))
 def test_p_and_ds_rounding_stays_within_the_tensor_core_tolerance(case,
                                                                   dtype):
     """The ``tensor_cores`` route is held to ``grad_tolerance(plain,
@@ -275,8 +290,9 @@ def test_p_and_ds_rounding_stays_within_the_tensor_core_tolerance(case,
     reference's ``jax.vjp`` gradient of the same 16-bit values (fed the
     float32 forward's out and lse, as the reference differentiates its
     float32 arithmetic), so the bar follows from the rounding and is no
-    fit to the kernel."""
-    B, Sq, Sk, H, KV, hd, kw = {**CASES, **DEAD_CASES}[case]
+    fit to the kernel.  At hd 256 (``HD256_CASES``) the bar of the
+    route's second tiling, which rounds P and dS the same way."""
+    B, Sq, Sk, H, KV, hd, kw = ALL_CASES[case]
     q, k, v, dout = (_t(a).to(dtype) for a in _inputs(
         len(case) + 5, B, Sq, Sk, H, KV, hd, np.float32))
     out, lse = flash_attention_fwd_lse(q, k, v, **kw)
@@ -304,12 +320,12 @@ def test_p_and_ds_rounding_stays_within_the_tensor_core_tolerance(case,
         assert bool((err <= grad_tolerance(w, m)).all()), float(err.max())
 
 
-@pytest.mark.parametrize("case", list(CASES) + list(DEAD_CASES))
+@pytest.mark.parametrize("case", list(ALL_CASES))
 def test_bwd_magnitudes_match_float64(case):
     """``flash_attention_bwd_magnitudes`` in float32 within 1e-5 relative
     of the same in float64 (sums of non-negative terms), and in float64
     each one bounds its gradient (|dq| <= |dS||k|·hd^-0.5, ...)."""
-    B, Sq, Sk, H, KV, hd, kw = {**CASES, **DEAD_CASES}[case]
+    B, Sq, Sk, H, KV, hd, kw = ALL_CASES[case]
     x64 = [_t(a) for a in _inputs(len(case) + 6, B, Sq, Sk, H, KV, hd)]
     out64 = tref.flash_attention_ref(*x64[:3], **kw)
     lse64 = tref.flash_attention_lse_ref(*x64[:2], **kw)
@@ -331,15 +347,16 @@ def test_bwd_magnitudes_match_float64(case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_route_for(dtype, hd):
-    """bfloat16/float16 with hd <= 128 take the tensor cores; float32
-    (exact float32 has no tensor-core path) and hd 256 the CUDA cores."""
-    want = TENSOR_CORES if dtype != torch.float32 and hd <= 128 \
+    """bfloat16/float16 with hd <= 256 take the tensor cores (hd 256 with
+    the tiling that splits the head between the warpgroups); float32
+    (exact float32 has no tensor-core path) the CUDA cores."""
+    want = TENSOR_CORES if dtype != torch.float32 and hd <= 256 \
         else CUDA_CORES
     assert route_for(dtype, hd) == want
 
 
 @pytest.mark.parametrize("dtype,hd,route", [
-    (torch.float32, 64, TENSOR_CORES), (torch.bfloat16, 256, TENSOR_CORES),
+    (torch.float32, 64, TENSOR_CORES), (torch.bfloat16, 320, TENSOR_CORES),
     (torch.bfloat16, 64, "warp_specialized")])
 def test_a_forced_route_the_inputs_cannot_take_raises(dtype, hd, route):
     """Before any launch (so also without a card): no silent fallback."""

@@ -337,7 +337,8 @@ def test_affine_plan_on_the_card_is_bit_exact(name):
 
 # (B, Sq, Sk, H, KV, hd, keywords): one case per feature, each run in
 # float32 (the CUDA-core kernel) and in bfloat16 and float16 (the
-# tensor-core kernel); hd 16/64/128/256 and lengths that no tile divides
+# tensor-core kernel); hd 16/64/128/200/256 and lengths that no tile
+# divides
 FLASH_CASES = {
     "gqa": (2, 128, 128, 6, 2, 64, {}),
     "cap": (1, 100, 100, 4, 4, 32, dict(logit_cap=50.0)),
@@ -350,6 +351,7 @@ FLASH_CASES = {
     "hd 128 several tiles": (1, 150, 290, 2, 1, 128, dict(q_offset=140)),
     "hd 256": (1, 70, 70, 2, 1, 256, dict(logit_cap=30.0)),
     "hd 256 several tiles": (1, 140, 140, 2, 1, 256, dict(window=100)),
+    "hd 200 gqa q_offset": (1, 90, 130, 4, 2, 200, dict(q_offset=40)),
     # the MoE and hybrid configs' layer shapes; hd 80 is a partial second
     # 64-column chunk of the 128-wide tensor-core kernel
     "zamba2 hd 80": (1, 300, 300, 32, 32, 80, {}),
@@ -671,6 +673,30 @@ def test_bf16_lm_loss_backward_takes_only_the_tensor_core_route():
         pytest.skip(NEEDS_CARD)
     cfg = dataclasses.replace(get_config("qwen2-1.5b", reduced=True),
                               dtype=torch.bfloat16)
+    assert route_for(torch.bfloat16, cfg.hd) == TENSOR_CORES
+    model = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 65), device="cuda")
+    _build.reset_launch_counts()
+    got = _lm_grads(model, toks)
+    for n in BWD_KERNELS[1:]:
+        assert _build.LAUNCH_COUNTS[n] == cfg.n_layers
+        assert _build.LAUNCH_COUNTS[f"{n}:{TENSOR_CORES}"] == cfg.n_layers
+        assert _build.LAUNCH_COUNTS[f"{n}:{CUDA_CORES}"] == 0
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+
+
+@pytest.mark.gpu
+def test_bf16_gemma2_hd256_loss_backward_takes_only_the_tensor_core_route():
+    """The reduced gemma2 with gemma2's own head dim (256) in bfloat16,
+    its local layer's window cutting: every dK/dV and dQ launch of
+    ``Model.loss``'s backward is on the ``tensor_cores`` route (the
+    tiling for 128 < hd <= 256; one per layer), none on ``cuda_cores``,
+    and the gradient is finite."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    cfg = dataclasses.replace(get_config("gemma2-2b", reduced=True),
+                              head_dim=256, dtype=torch.bfloat16)
+    assert cfg.hd == 256
     assert route_for(torch.bfloat16, cfg.hd) == TENSOR_CORES
     model = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
     toks = torch.randint(0, cfg.vocab, (2, 65), device="cuda")

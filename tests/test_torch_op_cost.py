@@ -28,6 +28,7 @@ ratios, the per-layer scopes (``obs`` spans; the backward by autograd
 node) and the recording layout; the kernels' work is computed under a
 count only, and ``visible_pairs``'s closed form.
 """
+import dataclasses
 import importlib
 import json
 import pathlib
@@ -353,6 +354,28 @@ def test_counted_wrappers_return_outputs_of_the_kernels_shapes():
     assert out["multithreshold"].shape == (4, 3)
     # the kernels' work functions: the causal pairs of 8 queries
     assert t.by_op["flash_attention"]["flops"] == 2 * 4.0 * 2 * 16 * 36
+
+
+def test_gemma2_training_step_counts_the_tensor_core_backward_at_hd256():
+    """One bf16 gemma2-2b training step at published widths, cut in depth
+    to 2 of its 26 layers (1 x 64, one microbatch, no remat, on ``meta``
+    tensors): each layer's dK/dV and dQ go on the ``tensor_cores`` route
+    at hd 256, the dK/dV launch with its GQA sum (8 query heads over 4 KV
+    heads), and none on ``cuda_cores``."""
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=2)
+    assert (cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.dtype) == (
+        256, 8, 4, torch.bfloat16)
+    t = dryrun._trace.__wrapped__(
+        cfg, ShapeCell("t", 64, 1, "train"), (1, 1), ("data", "model"),
+        microbatches=1, remat=False, quant_bits=0, int8_weights=False,
+        int8_kv=False)
+    assert t.kernels == {"flash_attention": 2,
+                         "flash_attention_bwd_delta": 2,
+                         "flash_attention_bwd_dkdv": 2,
+                         "flash_attention_bwd_dq": 2}
+    assert t.routes == {"flash_attention_bwd_dkdv:tensor_cores": 2,
+                        "flash_attention_bwd_dq:tensor_cores": 2}
+    assert t.by_op["flash_attention_bwd_dkdv_sum"]["launches"] == 2
 
 
 # ------------------------------------------------------- the dry run

@@ -180,6 +180,45 @@ def test_adamw_five_updates_match_reference(case):
                                float(j_opt.schedule(js.step)), rtol=1e-7)
 
 
+@pytest.mark.parametrize("case", ["clip_active", "clip_inactive", "warmup",
+                                  "project"])
+def test_adamw_in_place_equals_out_of_place(case):
+    """A donated state (``in_place=True``, what the launcher's step does,
+    as the reference donates its state) gives the same five updates bit
+    for bit, and its moments (and masters, without a projection) are
+    the donated tensors themselves, updated in their own storage."""
+    kw, gscale, proj = _adamw_case(case)
+    rng = np.random.default_rng(12)
+    params = {"a": torch.from_numpy(rng.normal(size=(12, 5)).astype(
+        np.float32)).to(torch.bfloat16),
+        "b": [torch.from_numpy(rng.normal(size=(7,)).astype(np.float32))]}
+    grads = [{"a": torch.from_numpy((rng.normal(size=(12, 5)) * gscale)
+                                    .astype(np.float32)),
+              "b": [torch.from_numpy((rng.normal(size=(7,)) * gscale)
+                                     .astype(np.float32))]}
+             for _ in range(5)]
+    t_proj = (lambda t: {"a": torch.clamp(t["a"], -.5, .5),
+                         "b": [torch.clamp(x, -.5, .5) for x in t["b"]]}) \
+        if proj else None
+    opt = AdamW(lr=1e-2, project=t_proj, **kw)
+    out_p, out_s = params, opt.init(params)
+    in_p, in_s = params, opt.init(params)
+    for g in grads:
+        out_p, out_s = opt.update(g, out_s, out_p)
+        before = [t.data_ptr() for t in leaves(in_s.m) + leaves(in_s.v)
+                  + leaves(in_s.master)]
+        in_p, in_s = opt.update(g, in_s, in_p, in_place=True)
+        after = [t.data_ptr() for t in leaves(in_s.m) + leaves(in_s.v)
+                 + leaves(in_s.master)]
+        kept = 4 if proj else 6
+        assert before[:kept] == after[:kept]
+    for part in ("master", "m", "v"):
+        assert all(torch.equal(a, b) for a, b in zip(
+            leaves(getattr(out_s, part)), leaves(getattr(in_s, part))))
+    assert all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(leaves(out_p), leaves(in_p)))
+
+
 # ---------------------------------------------------------- compression
 
 def test_quantize_tensor_payload_bit_equal():
@@ -315,6 +354,29 @@ def test_lm_remat_gives_the_same_step():
     assert float(ma["loss"]) == float(mb["loss"])
     for x, y in zip(leaves(a.params), leaves(b.params)):
         torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
+
+
+def test_lm_donated_steps_equal_the_steps_out_of_place():
+    """``make_train_step(..., donate=True)`` (launch/train.py's step: the
+    state updated in place) gives three steps in two microbatches equal
+    bit for bit to the step that leaves its state alone."""
+    lm = _lm()
+    plain = make_train_step(lm["tm"], lm["opt"], remat=False, microbatches=2)
+    donated = make_train_step(lm["tm"], lm["opt"], remat=False,
+                              microbatches=2, donate=True)
+    flat, spec = flatten(lm["ts"])
+    a = lm["ts"]
+    b = unflatten(spec, [t.clone() if torch.is_tensor(t) else t
+                         for t in flat])
+    for i in range(3):
+        batch = lm["pipe"].batch_at(i)
+        a, ma = plain(a, batch)
+        b, mb = donated(b, batch)
+        assert float(ma["loss"]) == float(mb["loss"])
+    for x, y in zip(leaves(a), leaves(b)):
+        assert (x is None and y is None) or torch.equal(x, y)
+    # the shared step-0 state is untouched by the donated steps
+    assert int(lm["ts"].opt.step) == 0
 
 
 def test_lm_microbatching_equivalent():
