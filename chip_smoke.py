@@ -6,7 +6,7 @@ Run from the repository root, no arguments, one card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
-use), then runs fourteen phases and prints one JSON object per line:
+use), then runs fifteen phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds,
                the HGMMA (16-bit wgmma) instructions of flash_attention's
@@ -112,15 +112,21 @@ use), then runs fourteen phases and prints one JSON object per line:
                prefill, tokens/s and peak memory at B=4, S=2048 and B=1,
                S=32768, and the B=1, S=32768 prefill profiled once (its
                kernels, for the launch phase's count)
-  lm_families  the MoE, Mamba2 and Zamba2 families at their published
-               widths with seeded random weights: granite-moe-3b-a800m,
-               qwen2-moe-a2.7b, mamba2-780m and zamba2-2.7b.  float32,
-               B=1, S=512 (two SSD chunks), MoE at no-drop capacity:
-               logits with the flash-attention kernel against plain
-               attention (1e-4 of the logit scale), ``decode_step`` over
-               all 512 positions against ``forward`` (1e-3), 8 / 4 / 0 /
-               3 launches per forward (cut in depth: granite-moe at 8 of
-               its 32 layers, qwen2-moe at 4 of 24, zamba2 at 18 of 54);
+  lm_families  the other registered configs at their published widths
+               with seeded random weights: granite-moe-3b-a800m,
+               qwen2-moe-a2.7b, mamba2-780m, zamba2-2.7b, glm4-9b,
+               granite-3-2b, internvl2-26b (vlm: a seeded 256-position
+               patch embedding before the tokens), musicgen-medium
+               (audio: a 64-position frame embedding) and gemma2-2b.
+               float32, B=1, S=512 (two SSD chunks), MoE at no-drop
+               capacity: logits with the flash-attention kernel against
+               plain attention (1e-4 of the logit scale), ``decode_step``
+               over all 512 positions (on the tokens alone) against
+               ``forward`` (1e-3), one launch per attention layer of the
+               forward (cut in depth, ``FAMILY_F32_LAYERS``: granite-moe
+               8 of 32, qwen2-moe 4 of 24, zamba2 18 of 54, glm4-9b and
+               internvl2-26b 4 of 40 and 48, granite-3-2b and
+               musicgen-medium 8 of 40 and 48, gemma2-2b 4 of 26);
                MoE routing is logged, and a float32 near-tie
                that flips an expert between two runs must be one (margin
                < 1e-5) and ends the positions compared.  One MoE layer
@@ -129,8 +135,9 @@ use), then runs fourteen phases and prints one JSON object per line:
                dropped slots.  bfloat16: at B=1, S=2048 the logits
                against a float32 forward of the same weights (no further
                than 1.5x the plain attention's; mamba2 reports its
-               distance), prefills timed at B=4, S=2048 and, for the
-               long-context configs mamba2 and zamba2, B=1, S=32768
+               distance), prefills timed at B=4, S=2048 (one timed
+               call) and, for the long-context configs mamba2 and
+               zamba2, B=1, S=32768
   serve        the serving engine (``repro_torch.serve``) on qwen2-1.5b
                at full width with seeded weights (after the earlier
                phases' models are freed).  The SIRA KV spec: the default
@@ -159,7 +166,14 @@ use), then runs fourteen phases and prints one JSON object per line:
                and one decode step profiled (device ms by operator, idle
                share).  Then mamba2-780m, float32, static mode: four
                512-token prompts batched equal each served alone; a
-               mixed-length batch and paged mode refused.  No kernel of
+               mixed-length batch and paged mode refused.  The same for
+               gemma2-2b at 2 of its 26 layers (one local, one global),
+               its residual branches scaled up as qwen2's are: two
+               4080-token prompts and 32 new tokens, so the local
+               layers' 4096-slot rolling cache wraps, and request 0's
+               decode logits from position 4064 on (past 4096 and
+               before) within 1e-3 of the logit scale of
+               ``Model.forward`` over its whole sequence.  No kernel of
                this repo is on the serving path (paged attention is plain
                PyTorch, as in the reference); flash_attention runs in the
                ``Model.forward`` oracles
@@ -208,6 +222,20 @@ use), then runs fourteen phases and prints one JSON object per line:
                (dK/dV and dQ all on tensor_cores), the loss falling, ms
                per step, tokens/s, the model-FLOP share, peak memory, one
                more step profiled
+  quant_train  fake-quant training (``QuantSpec(8)``: weights per output
+               channel, activations per tensor, the clipped STE) of
+               qwen2-1.5b.  float32 at 7 of its 28 layers, 1 x 1024:
+               ``Model.loss`` through the kernels within 1e-5 relative of
+               the plain attention's, one launch of each kernel per
+               layer, each leaf's gradient distance reported (no bar:
+               two attention routes may put an activation's max element
+               on either side of its clip bound).  Then ``launch.train
+               --quant-bits 8`` at published widths (bf16 params, float32
+               masters, 2 x 2048 tokens a step in 2 microbatches, 6
+               steps): the reference's lines, 28 forward and 28 launches
+               of each backward kernel per microbatch (dK/dV and dQ all
+               on tensor_cores), the loss falling (last 3 below the
+               first 3), ms per step, tokens/s, peak memory
   launch       tensor parallelism (``launch/``, last): two ranks, each its
                own process (``launch/ranks.py``), gloo, both on cuda:0
                (NCCL refuses two ranks on one card; gloo stages the
@@ -321,6 +349,7 @@ from repro_torch.models.convert import ParamTree             # noqa: E402
 from repro_torch.models import get_model                     # noqa: E402
 from repro_torch.obs.trace import (Tracer, get_tracer,       # noqa: E402
                                    set_tracer)
+from repro_torch.quant.quantizer import QuantSpec            # noqa: E402
 from repro_torch.dataflow import compare_sira_vs_baseline  # noqa: E402
 from repro_torch.qat import (QATConfig, check_budget_invariant,  # noqa: E402
                              proven_layer_bits, run_qat)
@@ -380,17 +409,47 @@ FAMILY_WIDTHS = {
     "zamba2-2.7b": dict(n_layers=54, d_model=2560, n_heads=32,
                         n_kv_heads=32, vocab=32000, ssm=(64, 64, 2),
                         attn_every=6, launches=9),
+    # the dense configs beside qwen2-1.5b, and the vlm and audio ones:
+    # dense = (hd, d_ff, qkv_bias, tied embeddings, mlp activation);
+    # frontend = (kind, positions); gemma2's window, attention and final
+    # soft-caps
+    "glm4-9b": dict(n_layers=40, d_model=4096, n_heads=32, n_kv_heads=2,
+                    vocab=151552, dense=(128, 13696, True, False, "silu"),
+                    launches=40),
+    "granite-3-2b": dict(n_layers=40, d_model=2048, n_heads=32,
+                         n_kv_heads=8, vocab=49155,
+                         dense=(64, 8192, False, True, "silu"),
+                         launches=40),
+    "internvl2-26b": dict(n_layers=48, d_model=6144, n_heads=48,
+                          n_kv_heads=8, vocab=92553,
+                          dense=(128, 16384, False, False, "silu"),
+                          frontend=("patch", 256), launches=48),
+    "musicgen-medium": dict(n_layers=48, d_model=1536, n_heads=24,
+                            n_kv_heads=24, vocab=2048,
+                            dense=(64, 6144, False, False, "gelu"),
+                            frontend=("frame", 64), launches=48),
+    "gemma2-2b": dict(n_layers=26, d_model=2304, n_heads=8, n_kv_heads=4,
+                      vocab=256000, dense=(256, 9216, False, True, "gelu"),
+                      window=(4096, 50.0, 30.0), launches=26),
 }
-# the float32 checks' depth cuts: qwen2-moe at 4 of its 24 layers (a
-# float32 copy of all 24 next to the bf16 weights would take ~86 GB);
-# granite-moe at 8 of 32 and zamba2 at 18 of 54 (three shared-attention
-# groups), whose token-by-token decode over 512 positions took 63 s and
-# 37 s at full depth (one H100 80GB HBM3's host, 700 W)
+# the float32 checks' depth cuts (the bf16 check's float32 truth takes
+# the same layers): qwen2-moe at 4 of its 24 layers (a float32 copy of
+# all 24 next to the bf16 weights would take ~86 GB), internvl2-26b at 4
+# of 48 (a float32 copy of its 19.9 B parameters would take the card's
+# 80 GB) and glm4-9b at 4 of 40 (37.6 GB in float32 beside its 18.8 GB
+# of bf16 weights); granite-moe at 8 of 32 and zamba2 at 18 of 54 (three
+# shared-attention groups), whose token-by-token decode over 512
+# positions took 63 s and 37 s at full depth (one H100 80GB HBM3's host,
+# 700 W), and for the same decode time granite-3-2b at 8 of 40,
+# musicgen-medium at 8 of 48 and gemma2-2b at 4 of 26 (two local and
+# two global layers)
 FAMILY_F32_LAYERS = {"qwen2-moe-a2.7b": 4, "granite-moe-3b-a800m": 8,
-                     "zamba2-2.7b": 18}
+                     "zamba2-2.7b": 18, "glm4-9b": 4, "internvl2-26b": 4,
+                     "granite-3-2b": 8, "musicgen-medium": 8,
+                     "gemma2-2b": 4}
 FAMILY_F32 = (1, 512)          # (B, S): two 256-token SSD chunks
 FAMILY_ORACLE = (1, 2048)      # (B, S) of the MoE dispatch check
-FAMILY_BF16 = (4, 2048, 3)     # (B, S, timed calls), bfloat16
+FAMILY_BF16 = (4, 2048, 1)     # (B, S, timed calls), bfloat16
 FAMILY_LONG = (1, 32768, 2)    # the same, supports_long_context configs
 # two router probabilities closer than this are a tie to float32 rounding
 ROUTING_TIE = 1e-5
@@ -878,6 +937,13 @@ FA_GRID = [
     ("zamba2 hd 80", 1, 300, 300, 32, 32, 80, {}),
     ("qwen2-moe", 1, 256, 256, 16, 16, 128, {}),
     ("granite-moe", 1, 256, 256, 24, 8, 64, {}),
+    # the dense, vlm and audio configs of lm_families: glm4-9b's 16 query
+    # heads per KV head, internvl2-26b's 48 over 8, musicgen-medium's
+    # MHA at hd 64, granite-3-2b's 32 over 8 at hd 64
+    ("glm4-9b", 1, 256, 256, 32, 2, 128, {}),
+    ("internvl2-26b", 1, 256, 256, 48, 8, 128, {}),
+    ("musicgen-medium", 1, 256, 256, 24, 24, 64, {}),
+    ("granite-3-2b", 1, 256, 256, 32, 8, 64, {}),
 ]
 
 
@@ -1993,6 +2059,17 @@ def lm_tokens(cfg, B, S):
     return torch.randint(0, cfg.vocab, (B, S), generator=gen, device=DEV)
 
 
+def lm_frontend(cfg, B, dtype=None):
+    """The vlm and audio configs' frontend input, seeded: (B,
+    ``frontend_len``, d_model) in ``dtype`` (the config's), what their
+    patch or frame stub hands the backbone; None for the others."""
+    if cfg.frontend == "none":
+        return None
+    gen = torch.Generator(device=DEV).manual_seed(LM_SEED + 3)
+    return torch.randn((B, cfg.frontend_len, cfg.d_model), generator=gen,
+                       device=DEV).to(dtype or cfg.dtype)
+
+
 @contextlib.contextmanager
 def routing_log():
     """Record every MoE layer's routing, in call order: its expert ids
@@ -2050,29 +2127,36 @@ def lm_float32_checks(model, B, S) -> dict:
     reference's own test allows rtol 1e-3: every product has other shapes
     and so other cuBLAS reductions).  MoE layers log their routing, and
     a near-tie that flips between two runs ends the positions compared
-    (``first_routing_flip``)."""
+    (``first_routing_flip``).  The vlm and audio configs' forwards
+    take a seeded frontend embedding (``lm_frontend``) before the tokens;
+    their decode runs on the tokens alone, as ``decode_step`` does in
+    both packages, against a forward of the tokens alone."""
     cfg = model.cfg
     toks = lm_tokens(cfg, B, S)
+    fe = lm_frontend(cfg, B)
+    T = S + (0 if fe is None else fe.shape[1])
     V = cfg.vocab
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     before = _build.LAUNCH_COUNTS["flash_attention"]
     with routing_log() as log_k:
-        got = model(toks)
+        got = model(toks, fe)
     peak = torch.cuda.max_memory_allocated()
     launches = _build.LAUNCH_COUNTS["flash_attention"] - before
     check(launches == attn_launches(cfg),
           f"float32 forward launched flash_attention {launches} times, "
           f"not {attn_launches(cfg)}")
-    check(got.shape == (B, S, cfg.vocab_padded)
+    check(got.shape == (B, T, cfg.vocab_padded)
           and bool(torch.isfinite(got[..., :V]).all()),
           "float32 logits: wrong shape or not finite")
     out = dict(dtype="float32", B=B, S=S, launches_per_forward=launches)
+    if fe is not None:
+        out["frontend_positions"] = fe.shape[1]
     scale = float(got[..., :V].abs().max())
     if launches:
         with plain_attention(), routing_log() as log_p:
-            want = model(toks)
-        n, flips = first_routing_flip(log_k, log_p, cfg.n_layers, S)
+            want = model(toks, fe)
+        n, flips = first_routing_flip(log_k, log_p, cfg.n_layers, T)
         scale = float(want[..., :V].abs().max())
         err = float((got[:, :n, :V] - want[:, :n, :V]).abs().max())
         check(err <= 1e-4 * scale, f"float32 logits: kernel vs plain "
@@ -2081,6 +2165,10 @@ def lm_float32_checks(model, B, S) -> dict:
                    kernel_vs_plain_positions=n,
                    kernel_vs_plain_routing_flips=flips)
         del want
+    if fe is not None:
+        with routing_log() as log_k:
+            got = model(toks)
+        scale = float(got[..., :V].abs().max())
     t0 = time.perf_counter()
     cache = model.init_cache(B, S)
     err = torch.zeros((B, S), device=DEV)
@@ -2125,14 +2213,17 @@ def lm_bf16_accuracy(model, cfg, truth_params=None) -> dict:
     model without attention (Mamba2) reports its distance, finite."""
     B, S = LM_BF16_CHECK
     toks = lm_tokens(cfg, B, S)
+    fe = lm_frontend(cfg, B, torch.float32)
     V = cfg.vocab
     ref = get_model(dataclasses.replace(cfg, dtype=torch.float32))
     ref.params = truth_params if truth_params is not None else \
         copy.deepcopy(model.params).to(torch.float32)
-    truth = ref(toks)[..., :V]
+    truth = ref(toks, fe)[..., :V]
     del ref
+    if fe is not None:
+        fe = fe.to(cfg.dtype)
     before = _build.LAUNCH_COUNTS["flash_attention"]
-    got = model(toks)[..., :V]
+    got = model(toks, fe)[..., :V]
     launches = _build.LAUNCH_COUNTS["flash_attention"] - before
     check(launches == attn_launches(cfg),
           f"bf16 B={B} S={S}: {launches} flash_attention launches, not "
@@ -2151,7 +2242,7 @@ def lm_bf16_accuracy(model, cfg, truth_params=None) -> dict:
                launches_per_forward=launches)
     if launches:
         with plain_attention():
-            plain = model(toks)[..., :V]
+            plain = model(toks, fe)[..., :V]
         plain_max, plain_rms = dist(plain)
         check(kernel_max <= 1.5 * plain_max,
               f"bf16 logits through the kernel {kernel_max} of the logit "
@@ -2165,17 +2256,22 @@ def lm_bf16_accuracy(model, cfg, truth_params=None) -> dict:
 
 
 def lm_bf16_run(model, cfg, B, S, reps) -> dict:
+    """``reps`` timed bf16 prefills of B x S tokens (after the frontend's
+    positions for vlm and audio), after one warm call that checks the
+    launches and the logits."""
     toks = lm_tokens(cfg, B, S)
+    fe = lm_frontend(cfg, B)
+    T = S + (0 if fe is None else fe.shape[1])
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     before = _build.LAUNCH_COUNTS["flash_attention"]
-    out = model(toks)                              # warm-up and checks
+    out = model(toks, fe)                          # warm-up and checks
     peak = torch.cuda.max_memory_allocated()       # before the checks
     launches = _build.LAUNCH_COUNTS["flash_attention"] - before
     check(launches == attn_launches(cfg),
           f"bf16 B={B} S={S}: {launches} flash_attention launches, not "
           f"{attn_launches(cfg)}")
-    check(out.shape == (B, S, cfg.vocab_padded) and out.dtype ==
+    check(out.shape == (B, T, cfg.vocab_padded) and out.dtype ==
           torch.bfloat16 and bool(torch.isfinite(out[..., :cfg.vocab]).all())
           and bool((out[..., cfg.vocab:] == -1e30).all()),
           f"bf16 B={B} S={S}: logits wrong in shape, type or value")
@@ -2183,11 +2279,11 @@ def lm_bf16_run(model, cfg, B, S, reps) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        model(toks)
+        model(toks, fe)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / reps * 1e3
-    out = dict(dtype="bfloat16", B=B, S=S, ms_per_prefill=ms,
-               tokens_per_s=B * S / ms * 1e3, reps=reps,
+    out = dict(dtype="bfloat16", B=B, S=S, frontend_positions=T - S,
+               ms_per_prefill=ms, tokens_per_s=B * T / ms * 1e3, reps=reps,
                launches_per_forward=launches,
                memory_allocated_before=resident, max_memory_allocated=peak)
     if cfg.name == LM_ARCH and (B, S) == LM_PROFILED:
@@ -2227,10 +2323,13 @@ def float32_model(arch: str):
 #: the jobs of the float32 checks, longest first
 FLOAT32_JOBS = [f"float32:{a}" for a in (
     LM_ARCH, "granite-moe-3b-a800m", "zamba2-2.7b", "mamba2-780m",
-    "qwen2-moe-a2.7b")]
-#: processes such checks run in at once (their models and the parent's
-#: fit the card's 80 GB together)
-MAX_WORKERS = 3
+    "internvl2-26b", "musicgen-medium", "granite-3-2b", "glm4-9b",
+    "gemma2-2b", "qwen2-moe-a2.7b")]
+#: processes such checks run in at once: their models and the parent's
+#: fit the card's 80 GB together (the largest, internvl2-26b's 4 layers,
+#: peaked at 11.2 GB on one H100 80GB HBM3, 700 W; glm4-9b's at 8.6 GB);
+#: each spends ~8 s reaching the card, so five at once
+MAX_WORKERS = 5
 
 
 def run_worker(job: str, out: str) -> None:
@@ -2238,14 +2337,17 @@ def run_worker(job: str, out: str) -> None:
     its own, its result and the kernel launches it counted (from 0 in
     this process) in OUT.  Jobs: ``float32:ARCH`` (``lm_float32_checks``
     of ``float32_model(ARCH)``), ``serve_inv:fp`` / ``serve_inv:int8``
-    (``serve_invariants`` on ``serve_float32_model``) and
-    ``serve_static``."""
+    (``serve_invariants`` on ``serve_float32_model``), ``serve_static``
+    and ``serve_static:window`` (``serve_static`` of
+    ``SERVE_STATIC_WINDOW``)."""
     kind, _, arg = job.partition(":")
     if kind == "float32":
+        t0 = time.perf_counter()
         model = float32_model(arg)
         _build.reset_launch_counts()
         res = lm_float32_checks(model, *(LM_F32 if arg == LM_ARCH
                                          else FAMILY_F32))
+        res["seconds"] = time.perf_counter() - t0
     elif kind == "serve_inv":
         m32, spec_i8 = serve_float32_model()
         _build.reset_launch_counts()
@@ -2255,7 +2357,8 @@ def run_worker(job: str, out: str) -> None:
     elif kind == "serve_static":
         _build.reset_launch_counts()
         t0 = time.perf_counter()
-        res = serve_static()
+        res = serve_static(SERVE_STATIC_WINDOW if arg == "window"
+                           else SERVE_STATIC)
         res["seconds"] = time.perf_counter() - t0
     else:
         raise ValueError(f"unknown worker job {job!r}")
@@ -2330,10 +2433,18 @@ def check_widths(cfg, want: dict) -> None:
     if cfg.family == "moe":
         m = cfg.moe
         got["moe"] = (m.n_experts, m.top_k, m.n_shared, m.d_expert)
-    else:
+    elif cfg.family in ("ssm", "hybrid"):
         got["ssm"] = (cfg.ssm.d_state, cfg.ssm.head_dim, cfg.ssm.expand)
+    else:
+        got["dense"] = (cfg.hd, cfg.d_ff, cfg.qkv_bias, cfg.tie_embeddings,
+                        cfg.mlp_act)
     if cfg.family == "hybrid":
         got["attn_every"] = cfg.attn_every
+    if cfg.frontend != "none":
+        got["frontend"] = (cfg.frontend, cfg.frontend_len)
+    if cfg.sliding_window:
+        got["window"] = (cfg.sliding_window, cfg.attn_softcap,
+                         cfg.final_softcap)
     check(got == want, f"{cfg.name} is not at its published width: {got}")
 
 
@@ -2383,6 +2494,7 @@ def lm_family(arch: str, f32: Workers) -> dict:
     weights, and bf16 prefills timed.  The float32 model is a float32 copy
     of the bf16 model's weights (its first ``FAMILY_F32_LAYERS`` layers
     where cut)."""
+    t0 = time.perf_counter()
     cfg = get_config(arch)
     check_widths(cfg, FAMILY_WIDTHS[arch])
     model = lm_model(cfg)
@@ -2406,6 +2518,7 @@ def lm_family(arch: str, f32: Workers) -> dict:
                    for B, S, reps in runs]
     del model
     torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -2417,8 +2530,12 @@ def phase_lm_families(f32: Workers) -> dict:
     archs = [lm_family(arch, f32) for arch in FAMILY_WIDTHS]
     return dict(phase="lm_families", seed=LM_SEED, archs=archs,
                 seconds=time.perf_counter() - t0,
-                cut="qwen2-moe-a2.7b: float32 checks and the bf16 check at "
-                    "4 of its 24 layers; everything else at full depth",
+                cut="float32 checks and the bf16 check's float32 truth "
+                    "at the depths of FAMILY_F32_LAYERS: "
+                    + ", ".join(f"{a} {n} of "
+                                f"{FAMILY_WIDTHS[a]['n_layers']}"
+                                for a, n in FAMILY_F32_LAYERS.items())
+                    + "; the timed prefills at full depth",
                 note="ms_per_prefill: host clock around forward calls "
                      "ended by a synchronize, after one warm call",
                 launches=dict(flash_attention=_build.LAUNCH_COUNTS[
@@ -2448,6 +2565,16 @@ SERVE_PREFIX_REQS = ((200, 24), (40, 16), (120, 32), (8, 20), (256, 28),
 # full depth, would take ~120 s over the batched and the four solo runs;
 # 12 layers took 34 s on one H100 80GB HBM3's host, 700 W)
 SERVE_STATIC = ("mamba2-780m", 4, 512, 32, 6)
+# static mode on gemma2-2b's rolling window, the same fields: float32 at
+# 2 of its 26 layers (one local, one global: the cut keeps both kinds;
+# the prompt is decoded token by token, 3 x 4112 steps, which took 104 s
+# at 4 layers on one H100 80GB HBM3's host, 700 W); prompts of 4080
+# tokens and 32 new ones take the local layers' 4096-slot rolling cache
+# past its end, and the decode logits of request 0 served alone at
+# positions from SERVE_WINDOW_FROM on are held to ``Model.forward`` over
+# the whole sequence (those past the window show that the wrap is right)
+SERVE_STATIC_WINDOW = ("gemma2-2b", 2, 4080, 32, 2)
+SERVE_WINDOW_FROM = 4064
 # bf16 serving, timed: 16 requests (prompt 128-2048, 16-64 new tokens:
 # cut from 32-128, whose four variants took 95 s on one H100 80GB HBM3's
 # host, 700 W; a cut in depth would change the decode step that is
@@ -2642,11 +2769,26 @@ def serve_invariants(model, spec_name, spec) -> dict:
     return out
 
 
+def scale_branches(model, f: float) -> None:
+    """Multiply every layer's residual-branch outputs by ``f``: ``wo`` and
+    ``w_down``, or, where a post-norm rescales each branch's output
+    (gemma2), the post-norms' gain ``1 + s`` (s -> f·s + f - 1)."""
+    with torch.no_grad():
+        for p in model.params["layers"]:
+            if model.cfg.post_norms:
+                for k in ("post_ln1", "post_ln2"):
+                    p[k].mul_(f).add_(f - 1.0)
+            else:
+                p["attn"]["wo"].mul_(f)
+                p["mlp"]["w_down"].mul_(f)
+
+
 def serve_branch_gain(model) -> dict:
-    """Multiply every layer's ``wo`` and ``w_down`` by 4 (exact in bf16)
-    up to ``SERVE_BRANCH_GAIN``, probing each gain on 256 tokens: the share
-    of positions whose greedy pick is their own input token, the distinct
-    picks, the logit scale and the median top-2 margin."""
+    """Multiply every layer's residual-branch outputs by 4 (exact in bf16;
+    ``scale_branches``) up to ``SERVE_BRANCH_GAIN``, probing each gain on
+    256 tokens: the share of positions whose greedy pick is their own
+    input token, the distinct picks, the logit scale and the median top-2
+    margin."""
     cfg = model.cfg
     toks = lm_tokens(cfg, 1, 256)
     gain, probes = 1.0, []
@@ -2661,10 +2803,7 @@ def serve_branch_gain(model) -> dict:
             median_top2_margin=float((top[:, 0] - top[:, 1]).median())))
         if gain >= SERVE_BRANCH_GAIN:
             break
-        with torch.no_grad():
-            for p in model.params["layers"]:
-                p["attn"]["wo"].mul_(4.0)
-                p["mlp"]["w_down"].mul_(4.0)
+        scale_branches(model, 4.0)
         gain *= 4.0
     check(probes[-1]["self_share"] <= SERVE_SELF_SHARE,
           f"branch gain {gain}: {probes[-1]['self_share']} of the positions "
@@ -2821,16 +2960,24 @@ def serve_decode_profile(model, reqs) -> dict:
                 **prof)
 
 
-def serve_static() -> dict:
-    """Static mode on an SSM at full width, float32: four equal-length
-    prompts batched against each served alone (near-tie rule, the
-    forward's logits), and the refusals the reference makes: a mixed-
-    length batch and paged mode."""
-    arch, n, P, new, layers = SERVE_STATIC
+def serve_static(spec=SERVE_STATIC) -> dict:
+    """Static mode at published widths, float32, cut in depth (``spec``:
+    ``SERVE_STATIC``, an SSM, or ``SERVE_STATIC_WINDOW``, gemma2's
+    rolling window): equal-length prompts batched against each served
+    alone (near-tie rule, the forward's logits), and the refusals the
+    reference makes: a mixed-length batch and paged mode.  A tied
+    dense model first takes ``serve_branch_gain`` (its seeded greedy
+    streams would repeat their last token).  With a window, request 0's
+    decode logits served alone, from ``SERVE_WINDOW_FROM`` on, against
+    ``Model.forward`` over its whole sequence within 1e-3 of the logit
+    scale (``lm_prefill``'s decode bar)."""
+    arch, n, P, new, layers = spec
     cfg = get_config(arch)
     check_widths(cfg, FAMILY_WIDTHS[arch])
     model = lm_model(dataclasses.replace(cfg, dtype=torch.float32,
                                          n_layers=layers))
+    gain = serve_branch_gain(model) if cfg.family == "dense" and \
+        cfg.tie_embeddings else None
     rng = np.random.default_rng(LM_SEED + 6)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, size=(P,)),
                     max_new_tokens=new) for _ in range(n)]
@@ -2841,8 +2988,20 @@ def serve_static() -> dict:
     got = eng.generate(reqs)
     batched_s = time.perf_counter() - t0
     solo = ServingEngine(model, sc.replace(batch_slots=1))
+    decoded, step = {}, model.decode_step
+
+    def recorded(tokens, cache, index, **kw):
+        lg, cache = step(tokens, cache, index, **kw)
+        if index >= SERVE_WINDOW_FROM:
+            decoded[index] = lg[0, -1, :cfg.vocab].float().clone()
+        return lg, cache
     t0 = time.perf_counter()
-    want = [solo.generate([r])[0] for r in reqs]
+    want = []
+    for i, r in enumerate(reqs):
+        if cfg.sliding_window and i == 0:    # request 0's solo run
+            model.decode_step = recorded
+        want.append(solo.generate([r])[0])
+        vars(model).pop("decode_step", None)
     solo_s = time.perf_counter() - t0
 
     def logits_of(seq):
@@ -2850,6 +3009,32 @@ def serve_static() -> dict:
             return model(seq[None])[0, -1, :cfg.vocab].float()
     checks = [stream_check(r.prompt, g, w, logits_of)
               for r, g, w in zip(reqs, got, want)]
+    window = None
+    if cfg.sliding_window:
+        check(P + new - 1 > cfg.sliding_window and sorted(decoded) == list(
+                  range(SERVE_WINDOW_FROM, P + new - 1)),
+              f"{arch}: decoded positions {sorted(decoded)[:3]}... do not "
+              f"run from {SERVE_WINDOW_FROM} past the window "
+              f"{cfg.sliding_window} to {P + new - 2}")
+        seq = torch.as_tensor(np.concatenate([reqs[0].prompt,
+                                              want[0][:-1]]), device=DEV)
+        with torch.inference_mode():
+            fwd = model(seq[None])[0, SERVE_WINDOW_FROM:, :cfg.vocab].float()
+        dec = torch.stack([decoded[i] for i in sorted(decoded)])
+        err = (dec - fwd).abs().amax(dim=-1)
+        past = cfg.sliding_window - SERVE_WINDOW_FROM
+        scale = float(fwd.abs().max())
+        window = dict(window=cfg.sliding_window,
+                      positions=[SERVE_WINDOW_FROM, P + new - 2],
+                      past_window=int(err.numel() - past),
+                      max_abs_err_past_window=float(err[past:].max()),
+                      max_abs_err_before=float(err[:past].max()),
+                      logit_scale=scale)
+        check(window["max_abs_err_past_window"] <= 1e-3 * scale and
+              window["max_abs_err_before"] <= 1e-3 * scale,
+              f"{arch}: decode through the rolling window vs forward "
+              f"{window} > 1e-3 of the logit scale")
+        del fwd, dec
     refusals = []
     for bad in (lambda: eng.generate([reqs[0], dataclasses.replace(
                     reqs[1], prompt=reqs[1].prompt[:P // 2])]),
@@ -2865,7 +3050,8 @@ def serve_static() -> dict:
     torch.cuda.empty_cache()
     return dict(arch=arch, dtype="float32", layers=layers,
                 cut=f"{layers} of {cfg.n_layers} layers", requests=n,
-                prompt=P, new_tokens=new,
+                prompt=P, new_tokens=new, branch_gain=gain,
+                decode_vs_forward=window,
                 distinct_tokens=[len(set(g)) for g in got],
                 tokens_compared=sum(c["equal"] for c in checks),
                 flips=[dict(request=i, **c["flip"])
@@ -2928,8 +3114,10 @@ def serve_float32_model():
     return m32, spec_i8
 
 
-#: the serve phase's host-bound checks, run beside its untimed work
-SERVE_JOBS = ["serve_inv:fp", "serve_inv:int8", "serve_static"]
+#: the serve phase's host-bound checks, run beside its untimed work, all
+#: at once (fewer than MAX_WORKERS)
+SERVE_JOBS = ["serve_static:window", "serve_inv:fp", "serve_inv:int8",
+              "serve_static"]
 
 
 def phase_serve(card: str) -> dict:
@@ -2975,6 +3163,7 @@ def phase_serve(card: str) -> dict:
     inv = {name: res[f"serve_inv:{name}"] for name in ("fp", "int8")}
     inv["seconds"] = jobs_s
     static = res["serve_static"]
+    static_window = res["serve_static:window"]
     t0 = time.perf_counter()
     timed = serve_bf16(bf16, spec_i8)
     timed["seconds"] = time.perf_counter() - t0
@@ -2986,6 +3175,7 @@ def phase_serve(card: str) -> dict:
     return dict(phase="serve", arch=LM_ARCH, seed=LM_SEED, card=card,
                 branch_gain=gain, kv_spec=spec_report, paged_vs_forward=paged,
                 invariants=inv, bf16=timed, static=static,
+                static_window=static_window,
                 seconds=time.perf_counter() - t_phase,
                 note="times: host clock; tokens/s and TTFT from the "
                      "engine's ServingMetrics; no kernel of this repo on "
@@ -3179,12 +3369,14 @@ def grid_flash_attention_bwd() -> dict:
     return worst
 
 
-def loss_grads(model, toks):
-    """``Model.loss`` over ``toks`` (inputs and next-token labels) and its
-    gradient with respect to every leaf of the model's parameters."""
+def loss_grads(model, toks, quant=None):
+    """``Model.loss`` over ``toks`` (inputs and next-token labels; under
+    fake-quant ``quant``) and its gradient with respect to every leaf of
+    the model's parameters."""
     flat, spec = flatten(model.param_tree())
     live = [t.detach().requires_grad_(True) for t in flat]
-    loss = model.loss(unflatten(spec, live), toks[:, :-1], toks[:, 1:])
+    loss = model.loss(unflatten(spec, live), toks[:, :-1], toks[:, 1:],
+                      quant=quant)
     return float(loss.detach()), torch.autograd.grad(loss, live)
 
 
@@ -3620,6 +3812,167 @@ def phase_gemma2_train(card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase: quant_train — fake-quant training (QuantSpec(8)) of qwen2-1.5b
+# --------------------------------------------------------------------------
+
+QUANT_BITS = 8
+#: the float32 check: ``Model.loss(quant=QuantSpec(8))`` at B x S and
+#: ``LM_F32_LAYERS`` of qwen2-1.5b's layers, kernels vs plain attention
+QUANT_GRAD = (1, 1024)
+QUANT_LOSS_TOL = 1e-5        # relative: lm_train's loss bar
+#: ``launch.train --quant-bits 8`` at published widths, bf16 params and
+#: float32 masters: the global batch and length, the microbatches, the
+#: steps and the warm steps left out of the median
+QUANT_TRAIN = dict(batch=2, seq=2048, microbatches=2, steps=6, warm=2)
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The dotted names of ``tree``'s leaves, in ``flatten``'s order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, c in enumerate(tree)
+                for n in leaf_names(c, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def quant_grad_check() -> dict:
+    """qwen2-1.5b at published widths cut to ``LM_F32_LAYERS`` layers,
+    float32, under ``QuantSpec(8)`` (each weight per output channel, each
+    activation per tensor, clipped STE): ``Model.loss`` through the
+    kernels (one forward and three backward launches per layer) against
+    the plain attention, within ``QUANT_LOSS_TOL`` relative.  Each leaf's
+    gradient distance (max |g - g_plain| over max |g_plain|) is reported
+    with no bar: where the two attention routes sum in other orders, an
+    activation's max element may land on either side of its clip bound
+    qmax·s and so get the STE's gradient in one route and none in the
+    other (the mechanism of C4); the gradient's bar against the
+    reference is the CPU tests' (``tests/test_torch_quant_grad.py``)."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=torch.float32,
+                              n_layers=LM_F32_LAYERS)
+    model = lm_model(cfg)
+    B, S = QUANT_GRAD
+    toks = lm_tokens(cfg, B, S + 1)
+    quant = QuantSpec(bits=QUANT_BITS)
+    counted = ("flash_attention",) + BWD_KERNELS
+    before = {n: _build.LAUNCH_COUNTS[n] for n in counted}
+    loss_k, g_k = loss_grads(model, toks, quant)
+    launches = {n: _build.LAUNCH_COUNTS[n] - before[n] for n in counted}
+    check(all(launches[n] == cfg.n_layers for n in counted),
+          f"fake-quant loss and gradient: launches {launches}, not "
+          f"{cfg.n_layers} of each kernel")
+    with plain_attention():
+        loss_p, g_p = loss_grads(model, toks, quant)
+    check(math.isfinite(loss_k) and
+          abs(loss_k - loss_p) <= QUANT_LOSS_TOL * abs(loss_p),
+          f"fake-quant loss: kernels {loss_k} vs plain attention {loss_p}, "
+          f"not within {QUANT_LOSS_TOL} relative")
+    names = leaf_names(model.param_tree())
+    dist = []
+    for i, (a, b) in enumerate(zip(g_k, g_p)):
+        check(bool(torch.isfinite(a).all()),
+              f"fake-quant gradient, leaf {i}: not finite")
+        scale = float(b.abs().max())
+        dist.append(float((a - b).abs().max()) / scale if scale else 0.0)
+    worst = sorted(range(len(dist)), key=lambda i: -dist[i])[:5]
+    del model, g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(dtype="float32", layers=cfg.n_layers, B=B, S=S,
+                quant=f"QuantSpec(bits={QUANT_BITS})", loss_kernels=loss_k,
+                loss_plain=loss_p,
+                loss_rel_diff=abs(loss_k - loss_p) / abs(loss_p),
+                loss_bar=QUANT_LOSS_TOL, leaves=len(dist),
+                grad_rel_dist_max=max(dist),
+                grad_rel_dist_median=statistics.median(dist),
+                leaves_over_1e4=sum(d > 1e-4 for d in dist),
+                worst_leaves=[dict(leaf=names[i], rel_dist=dist[i])
+                              for i in worst],
+                launches=launches)
+
+
+def quant_train_run() -> dict:
+    """``launch.train --quant-bits 8`` at qwen2-1.5b's published widths
+    (``QUANT_TRAIN``): the reference's lines, one forward and three
+    backward launches per layer and microbatch (dK/dV and dQ on the
+    ``tensor_cores`` route), the loss falling (the mean of the last 3
+    steps below that of the first 3), ms per step (the median after the
+    warm steps), tokens/s and peak memory."""
+    t = QUANT_TRAIN
+    cfg = get_config(LM_ARCH)
+    counted = ("flash_attention",) + BWD_KERNELS + BWD_ROUTED[1:]
+    argv = ["--arch", LM_ARCH, "--steps", str(t["steps"]), "--batch",
+            str(t["batch"]), "--seq", str(t["seq"]), "--microbatches",
+            str(t["microbatches"]), "--quant-bits", str(QUANT_BITS),
+            "--log-every", "1", "--device", "cuda"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: _build.LAUNCH_COUNTS[n] for n in counted}
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        run = lm_trainer.run(argv)
+    launches = {n: _build.LAUNCH_COUNTS[n] - before[n] for n in counted}
+    peak = torch.cuda.max_memory_allocated()
+    per_run = cfg.n_layers * t["microbatches"] * t["steps"]
+    want = {n: per_run if ":" not in n or n.endswith(TENSOR_CORES) else 0
+            for n in counted}
+    check(launches == want,
+          f"fake-quant training: launches {launches}, not {per_run} of "
+          f"each kernel ({cfg.n_layers} layers x {t['microbatches']} "
+          f"microbatches x {t['steps']} steps; dK/dV and dQ on the "
+          f"tensor_cores route)")
+    check(train_lines_ok(printed.getvalue(), t["steps"]),
+          f"fake-quant training printed {printed.getvalue()[:300]!r}")
+    losses = run.losses
+    first3, last3 = statistics.mean(losses[:3]), statistics.mean(
+        losses[-3:])
+    check(all(math.isfinite(x) for x in losses) and last3 < first3,
+          f"fake-quant training: the loss did not fall ({first3} -> "
+          f"{last3})")
+    step_s = statistics.median(run.step_seconds[t["warm"]:])
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = t["batch"] * t["seq"]
+    return dict(
+        dtype="bfloat16 params, float32 masters",
+        quant=f"QuantSpec(bits={QUANT_BITS})",
+        algorithms="not deterministic", **{
+            k: t[k] for k in ("batch", "seq", "microbatches", "steps")},
+        warm_steps=t["warm"], tokens_per_step=tokens, losses=losses,
+        loss_first3=first3, loss_last3=last3, ms_per_step=step_s * 1e3,
+        tokens_per_s=tokens / step_s, max_memory_allocated=peak,
+        launches=launches,
+        launches_per_step={n: v // t["steps"] for n, v in launches.items()},
+        seconds=time.perf_counter() - t0)
+
+
+def phase_quant_train(card: str) -> dict:
+    """Fake-quant training of qwen2-1.5b on the card: the float32 loss
+    check (``quant_grad_check``), then ``launch.train --quant-bits 8`` at
+    published widths (``quant_train_run``)."""
+    t_phase = time.perf_counter()
+    gc.collect()                      # the earlier phases' models
+    torch.cuda.empty_cache()
+    # counts to 0 just before this path, read just after
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    grad = quant_grad_check()
+    grad["seconds"] = time.perf_counter() - t0
+    train = quant_train_run()
+    return dict(phase="quant_train", arch=LM_ARCH, card=card,
+                gradient=grad, train=train,
+                seconds=time.perf_counter() - t_phase,
+                note="ms_per_step: host clock, median after the warm "
+                     "steps, each step ending when its loss reaches the "
+                     "host",
+                launches={k: _build.LAUNCH_COUNTS[k]
+                          for k in ("flash_attention",) + BWD_KERNELS
+                          + BWD_ROUTED[1:]})
+
+
+# --------------------------------------------------------------------------
 # phase: launch — qwen2-1.5b over two ranks on the one card, compressed_psum,
 # the dry run's prediction against what the phases measured
 # --------------------------------------------------------------------------
@@ -3721,11 +4074,13 @@ LAUNCH_TRAIN_F32 = dict(arch=LM_ARCH, dtype="float32", seed=LM_SEED,
 # the loss of one fake-quant step (QuantSpec(bits=8)), same inputs
 LAUNCH_TRAIN_QUANT = dict(LAUNCH_TRAIN_F32, quant_bits=8, tol_grad=None,
                           tol_master=None)
-# bf16 (published dtype), timed: lm_train's batch, 10 steps, no oracle
+# bf16 (published dtype), timed: lm_train's batch, 6 steps (cut from 10
+# to make room for the fake-quant and rolling-window checks: only the
+# median step time has fewer samples), no oracle
 LAUNCH_TRAIN_TIMED = dict(arch=LM_ARCH, seed=LM_SEED,
                           batch=[LM_TRAIN["batch"], LM_TRAIN["seq"]],
                           microbatches=[LM_TRAIN["microbatches"]],
-                          layouts=[[1, 2]], steps=10, warm=3, lr=3e-3,
+                          layouts=[[1, 2]], steps=6, warm=3, lr=3e-3,
                           warmup=5, oracle=False, remat=False)
 LAUNCH_FAMILY_TOL = 1e-4     # of the logit scale: lm_families' bar
 LAUNCH_MOE = dict(archs=["granite-moe-3b-a800m", "qwen2-moe-a2.7b"],
@@ -4078,14 +4433,16 @@ def main() -> None:
     emit(train)
     gemma2 = phase_gemma2_train(env["nvidia_smi"])
     emit(gemma2)
+    quant = phase_quant_train(env["nvidia_smi"])
+    emit(quant)
     launch = phase_launch(env["nvidia_smi"], train, lm)
     emit(launch)
     phases = dict(main_path=main_path, sira_flow=sira, qat_chain=qat,
                   examples=examples, lm_prefill=lm, lm_families=fam,
                   serve=serve, lm_train=train, gemma2_train=gemma2,
-                  launch=launch)
+                  quant_train=quant, launch=launch)
     launches = dict(main_path["launches"], **lm["launches"])
-    for phase in (examples, fam, serve, train, gemma2, launch):
+    for phase in (examples, fam, serve, train, gemma2, quant, launch):
         launches["flash_attention"] += phase["launches"]["flash_attention"]
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -4114,7 +4471,7 @@ def main() -> None:
                  "(tensor_cores: bf16/f16, hd <= 256, here the hd <= 128 "
                  "tiling; cuda_cores: float32, forced here at bf16 to "
                  "time it)",
-            launches=train["launches"][name]
+            launches=train["launches"][name] + quant["launches"][name]
             + launch["launches"].get(name, 0),
             # gemma2's launches are the hd-256 tiling's (the rows below)
             launches_by_path={k: ph["launches"].get(name, 0)

@@ -47,6 +47,17 @@ def _reduce_axes(x: torch.Tensor, spec: QuantSpec) -> Tuple[int, ...]:
     return tuple(i for i in range(x.dim()) if i != ax)
 
 
+def times_reciprocal(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t / n`` as XLA compiles a division by a constant: ``t`` times the
+    reciprocal of ``n`` rounded to float32 (float64 for a float64 ``t``),
+    in that precision (a bf16 ``t`` is widened first), rounded once to
+    ``t``'s dtype.  Not the IEEE quotient: the two differ in the last
+    bit for some ``t``."""
+    wide = torch.float64 if t.dtype == torch.float64 else torch.float32
+    inv = float(1.0 / torch.tensor(float(n), dtype=wide))
+    return (t.to(wide) * inv).to(t.dtype)
+
+
 def compute_scale(x: torch.Tensor, spec: QuantSpec, eps: float = 1e-8,
                   amax: Optional[Callable[[torch.Tensor], torch.Tensor]]
                   = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -55,7 +66,14 @@ def compute_scale(x: torch.Tensor, spec: QuantSpec, eps: float = 1e-8,
     ``amax``, when given, maps each max this rank reduced (and each
     negated min) to the max over the ranks that hold the rest of the
     reduced dims (``Layout.max``): the scale of the whole tensor when
-    ``x`` is a rank's block of it."""
+    ``x`` is a rank's block of it.
+
+    Each scale is taken as the reference's is where it runs compiled
+    (its layers run under a scan): XLA turns ``amax / qmax`` into a
+    float32 product with the float32 reciprocal of ``qmax``, so the
+    scale is ``top * float32(1 / qmax)`` in float32, cast once to ``x``'s
+    dtype (:func:`times_reciprocal`).  The zero point keeps its
+    division, as the compiled reference does."""
     amax = amax or (lambda t: t)
     if spec.granularity == "per_group":
         ax = spec.channel_axis % x.dim()
@@ -65,7 +83,7 @@ def compute_scale(x: torch.Tensor, spec: QuantSpec, eps: float = 1e-8,
             raise ValueError("group_size must divide the channel dim")
         xg = torch.movedim(x, ax, -1).reshape(-1, shp[ax] // g, g)
         top = amax(xg.abs().amax(dim=(0, 2), keepdim=True))      # (1, G, 1)
-        s = torch.clamp(top / spec.qmax, min=eps)
+        s = torch.clamp(times_reciprocal(top, spec.qmax), min=eps)
         s = s.expand(1, shp[ax] // g, g).reshape(shp[ax])
         shape = [1] * x.dim()
         shape[ax] = shp[ax]
@@ -74,13 +92,14 @@ def compute_scale(x: torch.Tensor, spec: QuantSpec, eps: float = 1e-8,
     elif spec.symmetric:
         axes = _reduce_axes(x, spec)
         top = amax(x.abs().amax(dim=axes, keepdim=True))
-        s = torch.clamp(top / spec.qmax, min=eps)
+        s = torch.clamp(times_reciprocal(top, spec.qmax), min=eps)
         z = torch.zeros_like(s)
     else:
         axes = _reduce_axes(x, spec)
         x_lo = -amax(-x.amin(dim=axes, keepdim=True))
         x_hi = amax(x.amax(dim=axes, keepdim=True))
-        s = torch.clamp((x_hi - x_lo) / (spec.qmax - spec.qmin), min=eps)
+        s = torch.clamp(times_reciprocal(x_hi - x_lo, spec.qmax - spec.qmin),
+                        min=eps)
         z = torch.round(spec.qmin - x_lo / s)
     if spec.pot:
         s = torch.exp2(torch.ceil(torch.log2(s)))

@@ -8,7 +8,8 @@ the next step (error feedback), which is what keeps SGD/Adam convergence
 intact (Karimireddy et al., 2019).
 
 Counterpart of ``src/repro/train/compression.py``.  ``torch.round``
-rounds half to even like ``jnp.round``, so the int8 payload equals the
+rounds half to even like ``jnp.round``, and the scale is taken as the
+jitted step takes it, so the int8 payload equals the compiled
 reference's bit for bit.  ``compressed_psum``, the reference's
 ``shard_map`` collective, runs over an axis of the port's
 ``torch.distributed`` layout (``launch/mesh.py``) or a process group.
@@ -19,6 +20,7 @@ from typing import Any, Tuple
 
 import torch
 
+from ..quant.quantizer import times_reciprocal
 from ..tree import flatten, leaves, tree_map, unflatten
 
 
@@ -26,11 +28,13 @@ def quantize_tensor(g: torch.Tensor, amax=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor symmetric int8 quantization → (payload, scale).
     ``amax`` maps the local max |g| to the whole tensor's when ``g`` is a
-    rank's block of it (``Layout.max``)."""
+    rank's block of it (``Layout.max``).  The scale is the compiled
+    reference's (it runs inside the jitted step): ``amax`` times the
+    float32 reciprocal of 127, not the IEEE quotient."""
     top = torch.max(torch.abs(g))
     if amax is not None:
         top = amax(top)
-    scale = torch.clamp(top / 127.0, min=1e-12)
+    scale = torch.clamp(times_reciprocal(top, 127), min=1e-12)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -43,12 +47,19 @@ def compress_grads(grads: Any, error_feedback: Any, amax=None
                    ) -> Tuple[Any, Any]:
     """Quantize (grads + carried error) to int8; return (dequantized
     grads, new error feedback).  ``amax``: as :func:`quantize_tensor`'s,
-    for grads that are a rank's blocks."""
+    for grads that are a rank's blocks.
+
+    The new error is ``g32 - q * s`` rounded once, as the compiled
+    reference computes it: XLA contracts the product and the difference
+    into one fused multiply-add.  In float64 the product of an int8 and a
+    float32 is exact and so is the difference (|g32 - q·s| <= s/2 spans
+    fewer than 53 bits), so one rounding to float32 gives the fma's
+    result on any device."""
     def one(g, e):
         g32 = g.to(torch.float32) + e
         q, s = quantize_tensor(g32, amax)
-        deq = dequantize_tensor(q, s)
-        return deq, g32 - deq
+        err = q.to(torch.float64).mul_(-s.to(torch.float64)).add_(g32)
+        return dequantize_tensor(q, s), err.to(torch.float32)
 
     flat_g, spec = flatten(grads)
     outs = [one(g, e) for g, e in zip(flat_g, leaves(error_feedback))]

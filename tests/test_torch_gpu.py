@@ -1,8 +1,9 @@
 """Tests that need a CUDA device: each hand-written kernel against its
 plain PyTorch version, compiled models (interval- and affine-proven
 plans) against the numpy interpreter, reduced LM prefills (dense, MoE,
-Mamba2, Zamba2) through the flash-attention kernel, the attention
-backward kernels, the LM's gradient and ``launch.train.main`` (remat, a
+Mamba2, Zamba2; glm4, internvl2 and musicgen with their frontends)
+through the flash-attention kernel, the attention backward kernels, the
+LM's gradient (also under fake-quant) and ``launch.train.main`` (remat, a
 bit-exact resume), accumulator-aware QAT (training, resume,
 the exported model through the kernels), and the serving path
 (``paged_attention``, the reduced engine against the CPU's), on the card.  They skip elsewhere (decided
@@ -38,6 +39,7 @@ from repro_torch.kernels.ref import (DEAD_LSE, flash_attention_bwd_ref,
                                      flash_attention_ref)
 from repro_torch.launch import train as launch_train
 from repro_torch.models import attention as attn_mod, get_model
+from repro_torch.quant.quantizer import QuantSpec
 from repro_torch.qat import (QATConfig, check_budget_invariant,
                              proven_layer_bits, run_qat)
 from repro_torch.serve import (Request, ServingConfig, ServingEngine,
@@ -512,6 +514,39 @@ def test_bf16_lm_prefill_launches_the_kernel_once_per_layer():
     assert bool(torch.isfinite(got[..., :cfg.vocab]).all())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["glm4-9b", "internvl2-26b",
+                                  "musicgen-medium"])
+def test_dense_vlm_audio_prefill_on_the_card_goes_through_the_kernel(arch):
+    """Reduced glm4-9b (GQA, qkv bias), internvl2-26b and musicgen-medium
+    (each with a seeded frontend embedding before its tokens) on the
+    card: one kernel launch per layer, logits within 1e-4 of their scale
+    of the same model's with the plain attention."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    cfg = get_config(arch, reduced=True)
+    model = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 70), generator=gen,
+                         device="cuda")
+    fe = None
+    if cfg.frontend != "none":
+        fe = torch.randn((2, cfg.frontend_len, cfg.d_model), generator=gen,
+                         device="cuda")
+    _build.reset_launch_counts()
+    got = model(toks, fe)
+    assert _build.LAUNCH_COUNTS["flash_attention"] == cfg.n_layers
+    assert got.shape == (2, 70 + cfg.frontend_len, cfg.vocab_padded)
+    kernel = attn_mod.flash_attention
+    attn_mod.flash_attention = flash_attention_ref
+    try:
+        want = model(toks, fe)
+    finally:
+        attn_mod.flash_attention = kernel
+    scale = float(want[..., :cfg.vocab].abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+
+
 FAMILY_LAUNCHES = {"granite-moe-3b-a800m": 2, "qwen2-moe-a2.7b": 2,
                    "mamba2-780m": 0, "zamba2-2.7b": 2}
 
@@ -662,6 +697,39 @@ def test_lm_loss_on_the_card_has_a_gradient_through_the_kernels():
         attn_mod.flash_attention = kernel
     for a, w in zip(got, want):
         assert bool(((a - w).abs() <= 1e-4 * w.abs().max()).all())
+
+
+@pytest.mark.gpu
+def test_fake_quant_lm_loss_on_the_card_through_the_kernels():
+    """The reduced qwen2 on the card under ``QuantSpec(8)``: ``Model.loss``
+    through the kernels (one forward and one launch of each backward
+    kernel per layer) within 1e-5 relative of the loss through the plain
+    attention, its gradient finite."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    model = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 33), device="cuda")
+    quant = QuantSpec(bits=8)
+
+    def loss_and_grads():
+        flat, spec = flatten(model.param_tree())
+        live = [t.detach().requires_grad_(True) for t in flat]
+        loss = model.loss(unflatten(spec, live), toks[:, :-1], toks[:, 1:],
+                          quant=quant)
+        return float(loss), torch.autograd.grad(loss, live)
+    _build.reset_launch_counts()
+    got, grads = loss_and_grads()
+    assert _build.LAUNCH_COUNTS["flash_attention"] == cfg.n_layers
+    assert all(_build.LAUNCH_COUNTS[n] == cfg.n_layers for n in BWD_KERNELS)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    kernel = attn_mod.flash_attention
+    attn_mod.flash_attention = flash_attention_ref
+    try:
+        want, _ = loss_and_grads()
+    finally:
+        attn_mod.flash_attention = kernel
+    assert abs(got - want) <= 1e-5 * abs(want)
 
 
 @pytest.mark.gpu

@@ -123,10 +123,13 @@ SPECS = {
 
 @pytest.mark.parametrize("name", list(SPECS))
 def test_quantizer_matches_reference(name):
+    """Against ``jax.jit`` of the reference's scale and dynamic fake-quant:
+    the reference runs them compiled (under its layers' scan), where XLA
+    multiplies by the reciprocal of ``qmax`` (C4)."""
     js = SPECS[name]
     ts = t_quant.QuantSpec(**dataclasses.asdict(js))
     x = np.random.default_rng(3).normal(size=(6, 32)).astype(np.float32)
-    sj, zj = j_quant.compute_scale(jnp.asarray(x), js)
+    sj, zj = jax.jit(lambda v: j_quant.compute_scale(v, js))(jnp.asarray(x))
     st, zt = t_quant.compute_scale(_t(x), ts)
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-6)
     np.testing.assert_array_equal(zt.numpy(), np.asarray(zj))
@@ -135,7 +138,8 @@ def test_quantizer_matches_reference(name):
         np.asarray(j_quant.quantize_int(jnp.asarray(x), sj, zj, js)))
     np.testing.assert_allclose(
         t_quant.fake_quant_dynamic(_t(x), ts).numpy(),
-        np.asarray(j_quant.fake_quant_dynamic(jnp.asarray(x), js)),
+        np.asarray(jax.jit(lambda v: j_quant.fake_quant_dynamic(v, js))(
+            jnp.asarray(x))),
         rtol=1e-6, atol=1e-6)
 
 

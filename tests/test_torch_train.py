@@ -236,6 +236,9 @@ def test_quantize_tensor_payload_bit_equal():
 
 
 def test_error_feedback_three_steps_match_reference():
+    """Against ``jax.jit(compress_grads)``: the reference compresses inside
+    its jitted step, where the scale is ``amax * float32(1/127)`` and the
+    error ``g - q*s`` one fused multiply-add (C5)."""
     rng = np.random.default_rng(1)
     gs = [{"w": (rng.normal(size=(32,)) * s).astype(np.float32),
            "v": [rng.normal(size=(3, 4)).astype(np.float32)]}
@@ -244,8 +247,8 @@ def test_error_feedback_three_steps_match_reference():
     t_ef = init_error_feedback({"w": torch.zeros(32),
                                 "v": [torch.zeros(3, 4)]})
     for g in gs:
-        j_deq, j_ef = j_comp.compress_grads(jax.tree.map(jnp.asarray, g),
-                                            j_ef)
+        j_deq, j_ef = jax.jit(j_comp.compress_grads)(
+            jax.tree.map(jnp.asarray, g), j_ef)
         t_deq, t_ef = compress_grads(
             {"w": torch.from_numpy(g["w"]),
              "v": [torch.from_numpy(g["v"][0])]}, t_ef)
