@@ -6,7 +6,7 @@ Run from the repository root, no arguments, one card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first
-use), then runs fifteen phases and prints one JSON object per line:
+use), then runs sixteen phases and prints one JSON object per line:
 
   env          torch/CUDA versions, the card, the kernels' build seconds,
                the HGMMA (16-bit wgmma) instructions of flash_attention's
@@ -197,16 +197,17 @@ use), then runs fifteen phases and prints one JSON object per line:
                the float32 gradient than 1.5x the plain attention's bf16
                gradient, plus 1e-3 of its norm.  Then
                ``launch.train`` at published widths (bf16 params, float32
-               masters, 2 x 2048 tokens a step in 2 microbatches, 20
+               masters, 2 x 2048 tokens a step in 2 microbatches, 12
                steps) under deterministic algorithms: the reference's
                lines, one forward and three backward launches per layer
                and microbatch (dK/dV and dQ all on tensor_cores), the
-               loss falling, ms per step, tokens/s,
+               loss falling (last 5 below the first 5), ms per step,
+               tokens/s,
                the model-FLOP share, peak memory, one more step profiled
                (device ms by kernel family, idle share); then the same
-               run with a checkpoint every 10 steps killed at step 10,
+               run with a checkpoint every 6 steps killed at step 6,
                and the same command resumes there and ends in the
-               straight run's state, bit for bit
+               straight run's losses and state, bit for bit
   gemma2_train gemma2-2b (head dim 256, window 4096 on its even layers,
                soft-cap 50) on the tensor-core backward's hd-256 tiling.
                bf16 at its published widths cut to 2 of its 26 layers,
@@ -236,6 +237,36 @@ use), then runs fifteen phases and prints one JSON object per line:
                of each backward kernel per microbatch (dK/dV and dQ all
                on tensor_cores), the loss falling (last 3 below the
                first 3), ms per step, tokens/s, peak memory
+  family_train the MoE, Mamba2, Zamba2, vlm and audio configs trained at
+               published widths, one after another: granite-moe-3b-a800m
+               (32 layers), qwen2-moe-a2.7b (4 of 24), mamba2-780m (48),
+               zamba2-2.7b (54), musicgen-medium (48), internvl2-26b (4
+               of 48), each through ``launch.train`` (a cut one with its
+               ``get_config`` wrapped; bf16 params, float32 masters, 2 x
+               2048 tokens a step in 2 microbatches, 6 steps, token-only
+               as the reference's launcher): the reference's lines, one
+               forward and three backward launches per attention layer
+               (zamba2: per use of its shared block) and microbatch, all
+               dK/dV and dQ on tensor_cores (mamba2: none), the loss
+               falling (last 3 below the first 3), ms per step,
+               tokens/s, the model-FLOP share, peak memory, one more step
+               profiled.  Then each config's gradient at published
+               widths and cut depth, 1 x 512: bf16 through the kernels vs
+               the plain attention by lm_train's rule (2 layers; zamba2
+               12, its shared block used twice; internvl2 and musicgen
+               after a seeded frontend embedding of 256 and 64
+               positions; MoE's routing of the two bf16 runs compared,
+               bf16's own rounding measured by the float32 run: the
+               router probabilities by lm_train's rule, and each flip
+               no earlier flip reaches a near-tie for bf16, its margin
+               under 3x the plain bf16 run's largest change of a
+               probability from float32), mamba2 float32 on the card vs the
+               port on the CPU (loss 1e-5 relative, each leaf 1e-4 of
+               its max).  Then mamba2 (4 of 48 layers) and granite-moe
+               (2 of 32) under deterministic algorithms: 6 steps, a
+               checkpoint every 3, killed at step 4, resumed by the same
+               command, its losses and every tensor of the state equal
+               to the straight run's
   launch       tensor parallelism (``launch/``, last): two ranks, each its
                own process (``launch/ranks.py``), gloo, both on cuda:0
                (NCCL refuses two ranks on one card; gloo stages the
@@ -2073,14 +2104,16 @@ def lm_frontend(cfg, B, dtype=None):
 @contextlib.contextmanager
 def routing_log():
     """Record every MoE layer's routing, in call order: its expert ids
-    (sorted per token) and the top-(k+1) router probabilities."""
+    (sorted per token), the top-(k+1) router probabilities and all of
+    them."""
     log, route = [], lm_moe.route
 
     def recorded(params, x, **kw):
         r = route(params, x, **kw)
         k = r.gate_idx.shape[-1]
+        probs = r.probs.detach()
         log.append((r.gate_idx.sort(dim=-1).values,
-                    r.probs.topk(k + 1, dim=-1).values))
+                    probs.topk(k + 1, dim=-1).values, probs))
         return r
     lm_moe.route = recorded
     try:
@@ -2089,13 +2122,14 @@ def routing_log():
         lm_moe.route = route
 
 
-def routing_by_layer(log, n_layers):
+def routing_by_layer(log, n_layers, parts=(0, 1)):
     """A forward's log (one (B, S, .) entry per layer) or a decode's (one
-    (B, 1, .) entry per step and layer) → ids, top (n_layers, B, S, .)."""
+    (B, 1, .) entry per step and layer) → ids, top (n_layers, B, S, .)
+    (``parts`` of each entry: 0 ids, 1 top, 2 all probabilities)."""
     steps = len(log) // n_layers
     return tuple(torch.stack([torch.cat([log[t * n_layers + i][j]
                                          for t in range(steps)], dim=1)
-                              for i in range(n_layers)]) for j in (0, 1))
+                              for i in range(n_layers)]) for j in parts)
 
 
 def first_routing_flip(ref_log, log, n_layers, S) -> tuple:
@@ -2895,38 +2929,43 @@ def serve_timed(model, spec, kw, reqs, first) -> dict:
     return res, outs
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, by_op: bool = False) -> dict:
     """One call of ``fn`` under ``torch.profiler``: wall ms (ended by a
     synchronize), the device's busy ms (the union of its kernels'
     intervals) and idle share, device ms by PyTorch operator (top twelve,
-    self time of the kernels they launched) and ``by_kernel``: each
-    kernel's name -> [ms, launches]."""
+    self time of the kernels they launched; ``by_op``, which records the
+    host's operators too: reading a training step's back takes tens of
+    seconds) and ``by_kernel``: each kernel's name -> [ms, launches]."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU] * by_op +
+                  [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # the device's events straight from the trace (not ``prof.events()``,
+    # which builds a Python object per host and device event)
     spans, by_kernel = [], {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
             continue
-        spans.append((ev.time_range.start, ev.time_range.end))
-        acc = by_kernel.setdefault(ev.name, [0.0, 0])
-        acc[0] += ev.time_range.elapsed_us() / 1e3
+        spans.append((ev.start_ns(), ev.end_ns()))
+        acc = by_kernel.setdefault(ev.name(), [0.0, 0])
+        acc[0] += ev.duration_ns() / 1e6
         acc[1] += 1
-    busy_us, end = 0.0, float("-inf")
+    busy_ns, end = 0, float("-inf")
     for s, e in sorted(spans):
         if e > end:
-            busy_us += e - max(s, end)
+            busy_ns += e - max(s, end)
             end = e
+    busy_us = busy_ns / 1e3
     ops = sorted(((a.self_device_time_total / 1e3, a.count, a.key)
                   for a in prof.key_averages()
                   if a.key.startswith("aten::")
-                  and a.self_device_time_total > 0), reverse=True)
+                  and a.self_device_time_total > 0), reverse=True) \
+        if by_op else []
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                 idle_share=max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
                 kernels=len(spans),
@@ -2953,7 +2992,7 @@ def serve_decode_profile(model, reqs) -> dict:
           "decode profile: not every slot is active")
     lengths = [eng.scheduler.slots[i].length
                for i in eng.scheduler.active_slots()]
-    prof = device_profile(eng.step)
+    prof = device_profile(eng.step, by_op=True)
     prof["top_kernels"] = top_kernels(prof.pop("by_kernel"), 8)
     return dict(batch_slots=SERVE_BF16["batch_slots"],
                 max_seq=SERVE_BF16["max_seq"], cached_tokens=lengths,
@@ -3238,7 +3277,7 @@ LM_GRAD16_FLOOR = 1e-3
 #: microbatches ran out of the card's 80 GB, so the batch is halved), the
 #: microbatches, the steps and the checkpoint interval, the warm steps
 #: left out of the median
-LM_TRAIN = dict(batch=2, seq=2048, microbatches=2, steps=20, ckpt_every=10,
+LM_TRAIN = dict(batch=2, seq=2048, microbatches=2, steps=12, ckpt_every=6,
                 warm=3)
 
 
@@ -3369,14 +3408,15 @@ def grid_flash_attention_bwd() -> dict:
     return worst
 
 
-def loss_grads(model, toks, quant=None):
+def loss_grads(model, toks, quant=None, frontend=None):
     """``Model.loss`` over ``toks`` (inputs and next-token labels; under
-    fake-quant ``quant``) and its gradient with respect to every leaf of
-    the model's parameters."""
+    fake-quant ``quant``; after the ``frontend`` embedding's positions)
+    and its gradient with respect to every leaf of the model's
+    parameters."""
     flat, spec = flatten(model.param_tree())
     live = [t.detach().requires_grad_(True) for t in flat]
     loss = model.loss(unflatten(spec, live), toks[:, :-1], toks[:, 1:],
-                      quant=quant)
+                      frontend, quant=quant)
     return float(loss.detach()), torch.autograd.grad(loss, live)
 
 
@@ -3415,36 +3455,48 @@ def lm_grad_check() -> dict:
                 launches=launches)
 
 
-def lm_grad_check_bf16(cfg, B: int, S: int) -> dict:
-    """``cfg`` (qwen2-1.5b at full width; gemma2-2b's published widths at
-    2 of its layers) in bfloat16: ``Model.loss``'s gradient at B x S
-    through the kernels (the ``tensor_cores`` backward, one launch of
-    each per layer) against g32, the float32 gradient of a float32 copy
-    of the same weights through the plain attention.  Each leaf: ||g -
-    g32|| <= LM_GRAD16_FACTOR ||g_plain16 - g32|| + LM_GRAD16_FLOOR
+def lm_grad_check_bf16(cfg, B: int, S: int, frontend: bool = False
+                       ) -> dict:
+    """``cfg`` (qwen2-1.5b at full width; other configs' published widths
+    cut in depth) in bfloat16: ``Model.loss``'s gradient at B x S
+    (after ``lm_frontend``'s seeded embedding where ``frontend``) through
+    the kernels (the ``tensor_cores`` backward, one launch of each per
+    attention layer or use) against g32, the float32 gradient of a float32
+    copy of the same weights through the plain attention.  Each leaf: ||g
+    - g32|| <= LM_GRAD16_FACTOR ||g_plain16 - g32|| + LM_GRAD16_FLOOR
     ||g32||, with g_plain16 the bfloat16 gradient through the plain
     attention (PERF.md §2's bf16-logits rule: the kernels' rounding of P
-    and dS may add to a bf16 backward's error, not dominate it)."""
+    and dS may add to a bf16 backward's error, not dominate it).  MoE: the
+    routing of the two bf16 runs is compared, with the float32 run's as
+    the measure of bf16's own rounding (``routing_flips``)."""
     check(cfg.dtype == torch.bfloat16, f"{cfg.name} is not bfloat16")
     model = lm_model(cfg)
     toks = lm_tokens(cfg, B, S + 1)
+    fe = lm_frontend(cfg, B) if frontend else None
+    n_attn = attn_launches(cfg)
     counted = BWD_KERNELS[1:] + tuple(f"{n}:{r}" for n in BWD_KERNELS[1:]
                                       for r in BWD_ROUTES)
+    moe = cfg.family == "moe"
+    routed = routing_log() if moe else contextlib.nullcontext([])
     before = {n: _build.LAUNCH_COUNTS[n] for n in counted}
-    loss_k, g_k = loss_grads(model, toks)
+    with routed as log_k:
+        loss_k, g_k = loss_grads(model, toks, frontend=fe)
     launches = {n: _build.LAUNCH_COUNTS[n] - before[n] for n in counted}
-    check(all(launches[n] == cfg.n_layers and
-              launches[f"{n}:{TENSOR_CORES}"] == cfg.n_layers and
+    check(all(launches[n] == n_attn and
+              launches[f"{n}:{TENSOR_CORES}"] == n_attn and
               launches[f"{n}:{CUDA_CORES}"] == 0 for n in BWD_KERNELS[1:]),
-          f"bf16 loss and gradient: launches {launches}, not "
-          f"{cfg.n_layers} of each on the tensor_cores route")
-    with plain_attention():
-        loss_p, g_p = loss_grads(model, toks)
+          f"{cfg.name} bf16 loss and gradient: launches {launches}, not "
+          f"{n_attn} of each on the tensor_cores route")
+    routed = routing_log() if moe else contextlib.nullcontext([])
+    with plain_attention(), routed as log_p:
+        loss_p, g_p = loss_grads(model, toks, frontend=fe)
     ref = get_model(dataclasses.replace(cfg, dtype=torch.float32))
     ref.params = copy.deepcopy(model.params).to(torch.float32)
     del model
-    with plain_attention():
-        loss_32, g_32 = loss_grads(ref, toks)
+    routed = routing_log() if moe else contextlib.nullcontext([])
+    with plain_attention(), routed as log_32:
+        loss_32, g_32 = loss_grads(
+            ref, toks, frontend=None if fe is None else fe.float())
     del ref
     worst, rows = 0.0, 0
     for i, (a, b, c) in enumerate(zip(g_k, g_p, g_32)):
@@ -3453,19 +3505,86 @@ def lm_grad_check_bf16(cfg, B: int, S: int) -> dict:
         d_p = float((b.double() - c).norm())
         bar = LM_GRAD16_FACTOR * d_p + LM_GRAD16_FLOOR * float(c.norm())
         check(bool(torch.isfinite(a).all()) and d_k <= bar,
-              f"bf16 gradient, leaf {i} {tuple(c.shape)}: ||kernels - "
-              f"float32|| {d_k} > {bar} (plain bf16 {d_p}, ||g32|| "
-              f"{float(c.norm())})")
+              f"{cfg.name} bf16 gradient, leaf {i} {tuple(c.shape)}: "
+              f"||kernels - float32|| {d_k} > {bar} (plain bf16 {d_p}, "
+              f"||g32|| {float(c.norm())})")
         worst = max(worst, d_k / bar if bar else 0.0)
         rows += 1
     del g_k, g_p, g_32
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(arch=cfg.name, layers=cfg.n_layers, dtype="bfloat16", B=B,
-                S=S, loss_kernels=loss_k, loss_plain=loss_p,
-                loss_float32=loss_32, leaves=rows, max_share_of_bar=worst,
-                factor=LM_GRAD16_FACTOR, floor=LM_GRAD16_FLOOR,
-                launches=launches)
+    out = dict(arch=cfg.name, layers=cfg.n_layers, dtype="bfloat16", B=B,
+               S=S, frontend_positions=0 if fe is None else fe.shape[1],
+               loss_kernels=loss_k, loss_plain=loss_p,
+               loss_float32=loss_32, leaves=rows, max_share_of_bar=worst,
+               factor=LM_GRAD16_FACTOR, floor=LM_GRAD16_FLOOR,
+               launches=launches)
+    if moe:
+        out["routing"] = routing_flips(log_p, log_k, log_32, cfg.n_layers)
+    return out
+
+
+def downstream(flips: torch.Tensor) -> torch.Tensor:
+    """(layers, B, S) routing flips -> the token-layers a flip can reach:
+    every later layer of its row, at its position and after (a flip
+    changes that token's expert output, which the next layer reads there
+    and, through attention, at every later position; never an earlier
+    position or layer)."""
+    reach = flips.to(torch.int32).cummax(dim=2).values.cumsum(dim=0) > 0
+    return torch.cat([torch.zeros_like(reach[:1]), reach[:-1]])
+
+
+def routing_flips(plain_log, log, log_32, n_layers) -> dict:
+    """The MoE routing of a bf16 run through the kernels (``log``) against
+    the same bf16 run through the plain attention (``plain_log``), with the
+    float32 run of the same weights (``log_32``) as the measure of what
+    bf16's own rounding moves (``routing_log`` each).  Over the token-layers
+    no flip of any two of the runs reaches (``downstream``), the gradient
+    rule's form: ||p - p32|| <= LM_GRAD16_FACTOR ||p_plain - p32|| +
+    LM_GRAD16_FLOOR ||p32|| over all router probabilities.  A flip between
+    the two bf16 runs that no earlier flip of theirs reaches must be a
+    near-tie for bf16: its top-k margin in the plain run (the k-th minus
+    the (k+1)-th probability) under ``tie`` = 2 x LM_GRAD16_FACTOR x the
+    largest change of one probability between the plain bf16 and the
+    float32 run (two experts swap only if their probabilities move by the
+    margin between them, and the kernels may move one by the factor times
+    what bf16's rounding moves it).  Each such flip ends the comparison
+    there: the token-layers it reaches are not compared."""
+    ids_p, top_p, p_p = routing_by_layer(plain_log, n_layers, (0, 1, 2))
+    ids_k, p_k = routing_by_layer(log, n_layers, (0, 2))
+    ids_32, p_32 = routing_by_layer(log_32, n_layers, (0, 2))
+    flips = (ids_p != ids_k).any(dim=-1)                # (layers, B, S)
+    clean = ~(downstream(flips)
+              | downstream((ids_p != ids_32).any(dim=-1))
+              | downstream((ids_k != ids_32).any(dim=-1)))
+    p_p, p_k, p_32 = (x.double()[clean] for x in (p_p, p_k, p_32))
+    d_k = float((p_k - p_32).norm())
+    d_p = float((p_p - p_32).norm())
+    bar = LM_GRAD16_FACTOR * d_p + LM_GRAD16_FLOOR * float(p_32.norm())
+    moved_32 = float((p_p - p_32).abs().max())
+    moved_k = float((p_k - p_p).abs().max())
+    tie = 2 * LM_GRAD16_FACTOR * moved_32
+    first = flips & ~downstream(flips)
+    margin = (top_p[..., -2] - top_p[..., -1])[first].double()
+    out = dict(token_layers=int(flips.numel()), flips=int(flips.sum()),
+               flips_compared=int(first.sum()),
+               token_layers_compared=int(clean.sum()),
+               probs_kernels_vs_float32=d_k, probs_plain_vs_float32=d_p,
+               probs_bar=bar, max_moved_plain_vs_float32=moved_32,
+               max_moved_kernels_vs_plain=moved_k, tie=tie,
+               max_margin=float(margin.max()) if first.any() else None,
+               first_flip_position=int(flips.any(dim=0).any(dim=0)
+                                       .nonzero()[0]) if first.any()
+               else None)
+    check(d_k <= bar,
+          f"router probabilities through the kernels vs float32 {d_k} > "
+          f"{bar} (plain bf16 vs float32 {d_p})")
+    check(not bool((margin >= tie).any()),
+          f"routing flips whose top-k margin {out['max_margin']} is not a "
+          f"near-tie for bf16 (< {tie}: {2 * LM_GRAD16_FACTOR} x the plain "
+          f"bf16 run's largest change of a probability from float32, "
+          f"{moved_32})")
+    return out
 
 
 def train_argv(steps: int, ckpt_dir=None) -> list:
@@ -3509,6 +3628,24 @@ def device_families(by_kernel: dict) -> dict:
     return fam
 
 
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)``, with cuBLAS's fixed
+    workspace set for that check only."""
+    prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    prev_mode = torch.are_deterministic_algorithms_enabled()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev_mode)
+        if prev_env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_env
+
+
 class _Killed(Exception):
     """Stands for the process being killed (``lm_train_run``)."""
 
@@ -3531,131 +3668,83 @@ def killed_at(step: int):
         lm_trainer.TokenPipeline = real
 
 
+def resume_check(argv_in, kill_at: int, ckpt_every: int, state, losses,
+                 what: str) -> dict:
+    """``launch.train.run(argv_in(dir))``, a checkpoint every
+    ``ckpt_every`` steps into a fresh directory, killed when it reaches
+    step ``kill_at`` (after the checkpoint of the step before), and the
+    same command again: it resumes at the last checkpoint the killed run
+    wrote, its losses are ``losses`` from there on, and every tensor of its
+    final state is ``torch.equal`` to ``state`` (a straight run's, on the
+    host or the card)."""
+    last = kill_at - kill_at % ckpt_every
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = argv_in(tmp)
+        t0 = time.perf_counter()
+        with killed_at(kill_at), contextlib.redirect_stdout(io.StringIO()):
+            try:
+                lm_trainer.run(argv)
+            except _Killed:
+                pass
+        gc.collect()
+        torch.cuda.empty_cache()
+        kept = pathlib.Path(tmp, f"ckpt_{last:08d}.npz")
+        check(sorted(os.listdir(tmp)) == [kept.name],
+              f"{what}: the killed run left {sorted(os.listdir(tmp))}")
+        size = kept.stat().st_size
+        killed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            again = lm_trainer.run(argv)
+        resumed_s = time.perf_counter() - t0
+        head = printed.getvalue().splitlines()[0]
+        check(again.start_step == last and
+              head == f"resumed from {kept} at step {last}",
+              f"{what}: the second run did not resume at step {last}: "
+              f"{head!r}")
+    check(again.losses == losses[last:],
+          f"{what}: the resumed run's losses {again.losses} are not the "
+          f"straight run's {losses[last:]}")
+    pairs = [(a, b) for a, b in zip(leaves(state), leaves(again.state))
+             if a is not None or b is not None]
+    # compared on the card: a copy to it is faster than one from it
+    check(pairs and all(a is not None and b is not None and
+                        torch.equal(a.to(b.device), b.detach())
+                        for a, b in pairs),
+          f"{what}: the resumed run's state differs from the straight run's")
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(killed_at=kill_at, resumed_at=last,
+                tensors_equal=len(pairs), checkpoint_bytes=size,
+                killed_run_s=killed_s, resumed_run_s=resumed_s)
+
+
 def lm_train_run(card: str) -> dict:
     """``launch.train`` at published widths under deterministic
     algorithms (cuBLAS's fixed workspace set for this check only).  A
-    straight run of ``steps`` steps: the reference's lines, one forward
-    and three backward launches per layer and microbatch (dK/dV and dQ
-    on the ``tensor_cores`` route), a falling loss
-    (the mean of the last 5 below that of the first 5), ms per step (the
-    median after the warm steps), tokens/s, the model-FLOP share, peak
-    memory, one more step profiled; its final state is kept on the host.
-    Then the same run with a checkpoint every ``ckpt_every`` steps, killed
-    when it reaches step ``ckpt_every`` (so its last checkpoint is the
-    middle one, as if the final one had been deleted), and the same
-    command again: it resumes there, and its final state equals the
-    straight run's bit for bit.  (The runs call ``launch.train.run``, the
-    body of ``main``, which hands back the state; a checkpoint of this
-    state is 21.6 GB, so the runs write two and read one.)"""
+    straight run of ``steps`` steps through ``launcher_train`` (the loss
+    falling: the mean of the last 5 below that of the first 5), its final
+    state kept on the host; then ``resume_check``: killed when it reaches
+    step ``ckpt_every`` (so its last checkpoint is the middle one, as if
+    the final one had been deleted), resumed there, and its final state
+    equal to the straight run's bit for bit.  (The runs call
+    ``launch.train.run``, the body of ``main``, which hands back the
+    state; a checkpoint of this state is 21.6 GB, so the runs write two
+    and read one.)"""
     t = LM_TRAIN
-    cfg = get_config(LM_ARCH)
-    counted = ("flash_attention",) + BWD_KERNELS + BWD_ROUTED[1:]
-    prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    prev_mode = torch.are_deterministic_algorithms_enabled()
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
     t0 = time.perf_counter()
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        before = {n: _build.LAUNCH_COUNTS[n] for n in counted}
-        printed = io.StringIO()
-        with contextlib.redirect_stdout(printed):
-            first = lm_trainer.run(train_argv(t["steps"]))
-        peak = torch.cuda.max_memory_allocated()
-        launches = {n: _build.LAUNCH_COUNTS[n] - before[n] for n in counted}
-        per_run = cfg.n_layers * t["microbatches"] * t["steps"]
-        # bf16: every dK/dV and dQ launch on the tensor cores
-        want = {n: per_run if ":" not in n or n.endswith(TENSOR_CORES)
-                else 0 for n in counted}
-        check(launches == want,
-              f"training: launches {launches}, not {per_run} of each "
-              f"kernel ({cfg.n_layers} layers x {t['microbatches']} "
-              f"microbatches x {t['steps']} steps; dK/dV and dQ on the "
-              f"tensor_cores route)")
-        check(train_lines_ok(printed.getvalue(), t["steps"]),
-              f"training printed {printed.getvalue()[:300]!r}")
-        losses = first.losses
-        first5 = statistics.mean(losses[:5])
-        last5 = statistics.mean(losses[-5:])
-        check(all(math.isfinite(x) for x in losses) and last5 < first5,
-              f"training: the loss did not fall ({first5} -> {last5})")
-        step_s = statistics.median(first.step_seconds[t["warm"]:])
-        state_bytes = lm_dryrun.state_bytes(first.state)
-        # kept before the profiled step, which updates the donated state
-        # in place
-        kept = tree_map(lambda x: None if x is None else
-                        x.detach().cpu(), first.state)
-        prof = device_profile(lambda: first.step_fn(
-            first.state, first.pipeline.batch_at(t["steps"])))
-        first_s = time.perf_counter() - t0
-        del first
-        gc.collect()
-        torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory() as tmp:
-            argv = train_argv(t["steps"], tmp)
-            t1 = time.perf_counter()
-            with killed_at(t["ckpt_every"]), \
-                    contextlib.redirect_stdout(io.StringIO()):
-                try:
-                    lm_trainer.run(argv)
-                except _Killed:
-                    pass
-            gc.collect()
-            torch.cuda.empty_cache()
-            middle = pathlib.Path(tmp, f"ckpt_{t['ckpt_every']:08d}.npz")
-            check(sorted(os.listdir(tmp)) == [middle.name],
-                  f"the killed run left {sorted(os.listdir(tmp))}")
-            size = middle.stat().st_size
-            killed_s = time.perf_counter() - t1
-            t1 = time.perf_counter()
-            printed = io.StringIO()
-            with contextlib.redirect_stdout(printed):
-                again = lm_trainer.run(argv)
-            again_s = time.perf_counter() - t1
-            head = printed.getvalue().splitlines()[0]
-            check(again.start_step == t["ckpt_every"] and head ==
-                  f"resumed from {middle} at step {t['ckpt_every']}",
-                  f"the second run did not resume at step "
-                  f"{t['ckpt_every']}: {head!r}")
-            pairs = [(a, b) for a, b in zip(leaves(kept),
-                                            leaves(again.state))
-                     if a is not None or b is not None]
-            # compared on the card: a copy to it is faster than one from it
-            check(pairs and all(
-                a is not None and b is not None
-                and torch.equal(a.to(b.device), b.detach())
-                for a, b in pairs),
-                "the resumed run's state differs from the straight run's")
-            del again
-    finally:
-        torch.use_deterministic_algorithms(prev_mode)
-        if prev_env is None:
-            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_env
-    tokens = t["batch"] * t["seq"]
-    n_active = cfg.active_param_count()
-    return dict(
-        card=card, dtype="bfloat16 params, float32 masters",
-        algorithms="deterministic", **{
-            k: t[k] for k in ("batch", "seq", "microbatches", "steps",
-                              "ckpt_every")},
-        warm_steps=t["warm"], tokens_per_step=tokens, losses=losses,
-        loss_first5=first5, loss_last5=last5, ms_per_step=step_s * 1e3,
-        tokens_per_s=tokens / step_s,
-        model_flop_share=6.0 * n_active * tokens / (step_s * BF16_OPS_PER_S),
-        active_params=n_active, max_memory_allocated=peak,
-        state_bytes=state_bytes, launches=launches,
-        profile=dict(wall_ms=prof["wall_ms"],
-                     device_busy_ms=prof["device_busy_ms"],
-                     idle_share=prof["idle_share"],
-                     kernels=prof["kernels"],
-                     device_ms_by_family=device_families(prof["by_kernel"]),
-                     top_kernels=top_kernels(prof["by_kernel"], 8)),
-        resume=dict(killed_at=t["ckpt_every"], resumed_at=t["ckpt_every"],
-                    tensors_equal=len(pairs), checkpoint_bytes=size),
-        straight_run_s=first_s, killed_run_s=killed_s,
-        resumed_run_s=again_s, seconds=time.perf_counter() - t0)
+    with deterministic():
+        out, kept = launcher_train(get_config(LM_ARCH),
+                                   train_argv(t["steps"]), t, "training",
+                                   window=5, keep=True)
+        out["resume"] = resume_check(
+            lambda d: train_argv(t["steps"], d), t["ckpt_every"],
+            t["ckpt_every"], kept, out["losses"], "training")
+    out.update(card=card, ckpt_every=t["ckpt_every"],
+               seconds=time.perf_counter() - t0)
+    return out
 
 
 def phase_lm_train(card: str) -> dict:
@@ -3694,6 +3783,85 @@ def phase_lm_train(card: str) -> dict:
                           + BWD_ROUTED[1:]})
 
 
+def launcher_train(cfg, argv, t, what: str, profile: bool = True,
+                   window: int = 3, keep: bool = False) -> tuple:
+    """``launch.train.run(argv)`` of ``cfg`` (its attention layers, ``t``'s
+    microbatches, steps and warm steps): the reference's lines, one
+    forward and three backward launches per attention layer (a hybrid:
+    per use of its shared block) and microbatch, dK/dV and dQ all on the
+    ``tensor_cores`` route, the loss falling (the mean of the last
+    ``window`` steps below that of the first ``window``), ms per step (the
+    median after the warm steps, each step ending when its loss reaches
+    the host), tokens/s, the model-FLOP share, peak memory, the state's
+    bytes and, with ``profile``, one more step profiled.  -> (those, the
+    run's final state on the host with ``keep``, else None)."""
+    counted = ("flash_attention",) + BWD_KERNELS + BWD_ROUTED[1:]
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: _build.LAUNCH_COUNTS[n] for n in counted}
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        run = lm_trainer.run(argv)
+    launches = {n: _build.LAUNCH_COUNTS[n] - before[n] for n in counted}
+    peak = torch.cuda.max_memory_allocated()
+    per_run = attn_launches(cfg) * t["microbatches"] * t["steps"]
+    want = {n: per_run if ":" not in n or n.endswith(TENSOR_CORES) else 0
+            for n in counted}
+    check(launches == want,
+          f"{what}: launches {launches}, not {per_run} of each kernel "
+          f"({attn_launches(cfg)} attention layers or uses x "
+          f"{t['microbatches']} microbatches x {t['steps']} steps; dK/dV "
+          f"and dQ on the tensor_cores route)")
+    check(train_lines_ok(printed.getvalue(), t["steps"]),
+          f"{what} printed {printed.getvalue()[:300]!r}")
+    losses = run.losses
+    check(2 * window <= t["steps"], f"{what}: two loss windows of {window} "
+                                    f"overlap in {t['steps']} steps")
+    first, last = statistics.mean(losses[:window]), statistics.mean(
+        losses[-window:])
+    check(all(math.isfinite(x) for x in losses) and last < first,
+          f"{what}: the loss did not fall ({first} -> {last})")
+    step_s = statistics.median(run.step_seconds[t["warm"]:])
+    run_s = time.perf_counter() - t0
+    out = dict(
+        layers=cfg.n_layers, dtype="bfloat16 params, float32 masters",
+        algorithms="deterministic" if
+        torch.are_deterministic_algorithms_enabled() else
+        "not deterministic", batch=t["batch"], seq=t["seq"],
+        microbatches=t["microbatches"], steps=t["steps"],
+        warm_steps=t["warm"], tokens_per_step=t["batch"] * t["seq"],
+        losses=losses, **{f"loss_first{window}": first,
+                          f"loss_last{window}": last},
+        ms_per_step=step_s * 1e3,
+        tokens_per_s=t["batch"] * t["seq"] / step_s,
+        model_flop_share=6.0 * cfg.active_param_count() * t["batch"]
+        * t["seq"] / (step_s * BF16_OPS_PER_S),
+        params=cfg.param_count(), active_params=cfg.active_param_count(),
+        memory_held_before=held, max_memory_allocated=peak,
+        free_of_card=torch.cuda.get_device_properties(0).total_memory
+        - peak, state_bytes=lm_dryrun.state_bytes(run.state),
+        launches=launches, run_s=run_s)
+    # kept before the profiled step, which updates the donated state in
+    # place
+    kept = tree_map(lambda x: None if x is None else
+                    x.detach().to("cpu", copy=True), run.state) \
+        if keep else None
+    if profile:
+        prof = device_profile(lambda: run.step_fn(
+            run.state, run.pipeline.batch_at(t["steps"])))
+        out["profile"] = dict(
+            wall_ms=prof["wall_ms"], device_busy_ms=prof["device_busy_ms"],
+            idle_share=prof["idle_share"], kernels=prof["kernels"],
+            device_ms_by_family=device_families(prof["by_kernel"]),
+            top_kernels=top_kernels(prof["by_kernel"], 8))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out, kept
+
+
 # --------------------------------------------------------------------------
 # phase: gemma2_train — gemma2-2b (head dim 256) trained at published widths
 # --------------------------------------------------------------------------
@@ -3712,71 +3880,16 @@ GEMMA2_GRAD = dict(layers=2, B=1, S=6144)
 
 
 def gemma2_train_run() -> dict:
-    """``launch.train`` at gemma2-2b's published widths (26 layers):
-    the reference's lines, one forward and three backward launches per
-    layer and microbatch (dK/dV and dQ on the ``tensor_cores`` route,
-    head dim 256), the loss falling (the mean of the last 3 steps below
-    that of the first 3), ms per step (the median after the warm steps),
-    tokens/s, the model-FLOP share, peak memory, one more step
-    profiled."""
+    """``launch.train`` at gemma2-2b's published widths and depth (26
+    layers, head dim 256; ``GEMMA2_TRAIN``) through ``launcher_train``."""
     t = GEMMA2_TRAIN
-    cfg = get_config(GEMMA2_ARCH)
-    counted = ("flash_attention",) + BWD_KERNELS + BWD_ROUTED[1:]
     argv = ["--arch", GEMMA2_ARCH, "--steps", str(t["steps"]), "--batch",
             str(t["batch"]), "--seq", str(t["seq"]), "--microbatches",
             str(t["microbatches"]), "--log-every", "1", "--device", "cuda"]
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
     # counts to 0 just before the path, read just after
     _build.reset_launch_counts()
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        run = lm_trainer.run(argv)
-    launches = {n: _build.LAUNCH_COUNTS[n] for n in counted}
-    peak = torch.cuda.max_memory_allocated()
-    per_run = cfg.n_layers * t["microbatches"] * t["steps"]
-    want = {n: per_run if ":" not in n or n.endswith(TENSOR_CORES) else 0
-            for n in counted}
-    check(launches == want,
-          f"gemma2 training: launches {launches}, not {per_run} of each "
-          f"kernel ({cfg.n_layers} layers x {t['microbatches']} "
-          f"microbatches x {t['steps']} steps; dK/dV and dQ on the "
-          f"tensor_cores route)")
-    check(train_lines_ok(printed.getvalue(), t["steps"]),
-          f"gemma2 training printed {printed.getvalue()[:300]!r}")
-    losses = run.losses
-    first3, last3 = statistics.mean(losses[:3]), statistics.mean(
-        losses[-3:])
-    check(all(math.isfinite(x) for x in losses) and last3 < first3,
-          f"gemma2 training: the loss did not fall ({first3} -> {last3})")
-    step_s = statistics.median(run.step_seconds[t["warm"]:])
-    run_s = time.perf_counter() - t0
-    state_bytes = lm_dryrun.state_bytes(run.state)
-    prof = device_profile(lambda: run.step_fn(
-        run.state, run.pipeline.batch_at(t["steps"])))
-    del run
-    gc.collect()
-    torch.cuda.empty_cache()
-    tokens = t["batch"] * t["seq"]
-    n_active = cfg.active_param_count()
-    return dict(
-        dtype="bfloat16 params, float32 masters",
-        algorithms="not deterministic", **{
-            k: t[k] for k in ("batch", "seq", "microbatches", "steps")},
-        warm_steps=t["warm"], tokens_per_step=tokens, losses=losses,
-        loss_first3=first3, loss_last3=last3, ms_per_step=step_s * 1e3,
-        tokens_per_s=tokens / step_s,
-        model_flop_share=6.0 * n_active * tokens / (step_s * BF16_OPS_PER_S),
-        active_params=n_active, max_memory_allocated=peak,
-        free_of_card=torch.cuda.get_device_properties(0).total_memory
-        - peak, state_bytes=state_bytes, launches=launches,
-        profile=dict(wall_ms=prof["wall_ms"],
-                     device_busy_ms=prof["device_busy_ms"],
-                     idle_share=prof["idle_share"],
-                     kernels=prof["kernels"],
-                     device_ms_by_family=device_families(prof["by_kernel"]),
-                     top_kernels=top_kernels(prof["by_kernel"], 8)),
-        run_s=run_s, seconds=time.perf_counter() - t0)
+    return launcher_train(get_config(GEMMA2_ARCH), argv, t,
+                          "gemma2 training")[0]
 
 
 def phase_gemma2_train(card: str) -> dict:
@@ -3894,58 +4007,17 @@ def quant_grad_check() -> dict:
 
 def quant_train_run() -> dict:
     """``launch.train --quant-bits 8`` at qwen2-1.5b's published widths
-    (``QUANT_TRAIN``): the reference's lines, one forward and three
-    backward launches per layer and microbatch (dK/dV and dQ on the
-    ``tensor_cores`` route), the loss falling (the mean of the last 3
-    steps below that of the first 3), ms per step (the median after the
-    warm steps), tokens/s and peak memory."""
+    (``QUANT_TRAIN``) through ``launcher_train``, not profiled."""
     t = QUANT_TRAIN
-    cfg = get_config(LM_ARCH)
-    counted = ("flash_attention",) + BWD_KERNELS + BWD_ROUTED[1:]
     argv = ["--arch", LM_ARCH, "--steps", str(t["steps"]), "--batch",
             str(t["batch"]), "--seq", str(t["seq"]), "--microbatches",
             str(t["microbatches"]), "--quant-bits", str(QUANT_BITS),
             "--log-every", "1", "--device", "cuda"]
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    before = {n: _build.LAUNCH_COUNTS[n] for n in counted}
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        run = lm_trainer.run(argv)
-    launches = {n: _build.LAUNCH_COUNTS[n] - before[n] for n in counted}
-    peak = torch.cuda.max_memory_allocated()
-    per_run = cfg.n_layers * t["microbatches"] * t["steps"]
-    want = {n: per_run if ":" not in n or n.endswith(TENSOR_CORES) else 0
-            for n in counted}
-    check(launches == want,
-          f"fake-quant training: launches {launches}, not {per_run} of "
-          f"each kernel ({cfg.n_layers} layers x {t['microbatches']} "
-          f"microbatches x {t['steps']} steps; dK/dV and dQ on the "
-          f"tensor_cores route)")
-    check(train_lines_ok(printed.getvalue(), t["steps"]),
-          f"fake-quant training printed {printed.getvalue()[:300]!r}")
-    losses = run.losses
-    first3, last3 = statistics.mean(losses[:3]), statistics.mean(
-        losses[-3:])
-    check(all(math.isfinite(x) for x in losses) and last3 < first3,
-          f"fake-quant training: the loss did not fall ({first3} -> "
-          f"{last3})")
-    step_s = statistics.median(run.step_seconds[t["warm"]:])
-    del run
-    gc.collect()
-    torch.cuda.empty_cache()
-    tokens = t["batch"] * t["seq"]
-    return dict(
-        dtype="bfloat16 params, float32 masters",
-        quant=f"QuantSpec(bits={QUANT_BITS})",
-        algorithms="not deterministic", **{
-            k: t[k] for k in ("batch", "seq", "microbatches", "steps")},
-        warm_steps=t["warm"], tokens_per_step=tokens, losses=losses,
-        loss_first3=first3, loss_last3=last3, ms_per_step=step_s * 1e3,
-        tokens_per_s=tokens / step_s, max_memory_allocated=peak,
-        launches=launches,
-        launches_per_step={n: v // t["steps"] for n, v in launches.items()},
-        seconds=time.perf_counter() - t0)
+    out, _ = launcher_train(get_config(LM_ARCH), argv, t,
+                            "fake-quant training", profile=False)
+    out.update(quant=f"QuantSpec(bits={QUANT_BITS})", launches_per_step={
+        n: v // t["steps"] for n, v in out["launches"].items()})
+    return out
 
 
 def phase_quant_train(card: str) -> dict:
@@ -3967,6 +4039,220 @@ def phase_quant_train(card: str) -> dict:
                 note="ms_per_step: host clock, median after the warm "
                      "steps, each step ending when its loss reaches the "
                      "host",
+                launches={k: _build.LAUNCH_COUNTS[k]
+                          for k in ("flash_attention",) + BWD_KERNELS
+                          + BWD_ROUTED[1:]})
+
+
+# --------------------------------------------------------------------------
+# phase: family_train — the MoE, Mamba2, Zamba2, vlm and audio configs
+# trained at published widths
+# --------------------------------------------------------------------------
+
+#: the configs trained through launch/train.py at published widths, and
+#: the depth each trains at (None: all its layers).  The state takes 18 B
+#: a parameter (bf16 params, float32 masters, two float32 moments, float32
+#: gradient sums): qwen2-moe-a2.7b (14.3 B params) and internvl2-26b (19.9
+#: B) are cut to 4 layers (~52 and ~48.6 GB of state); the others train
+#: whole (granite-moe 59.4 GB, zamba2 43.6, musicgen 32.7, mamba2 15.4)
+FAMILY_TRAIN_DEPTH = {"granite-moe-3b-a800m": None, "qwen2-moe-a2.7b": 4,
+                      "mamba2-780m": None, "zamba2-2.7b": None,
+                      "musicgen-medium": None, "internvl2-26b": 4}
+#: the global batch and length, the microbatches, the steps and the warm
+#: steps left out of the median (bf16 params, float32 masters; token-only,
+#: as the reference's launcher: its pipeline has no frontend)
+FAMILY_TRAIN = dict(batch=2, seq=2048, microbatches=2, steps=6, warm=2)
+#: the length of a config whose 2 x 2048 ran out of the card's memory:
+#: zamba2's SSD keeps float32 (1, 8, 256, 256, 80) tensors for autograd
+#: in each of its 54 layers; 2 x 2048 peaked at 84.05 GB and failed, 2 x
+#: 1024 takes 77.22 (one H100 80GB HBM3, 700 W)
+FAMILY_TRAIN_SEQ = {"zamba2-2.7b": 1024}
+#: ``--lr`` where the launcher's 3e-3 (set on qwen2-1.5b, d_model 1536)
+#: makes the loss rise (internvl2-26b at 4 layers: 11.79, 13.57, 27.28,
+#: 25.34, 22.70): AdamW moves each weight by about lr a step, and the
+#: weights are drawn at d_model^-0.5, so internvl2-26b (d_model 6144)
+#: takes 3e-3 x 1536 / 6144
+FAMILY_TRAIN_LR = {"internvl2-26b": 7.5e-4}
+#: the gradient checks at published widths, cut in depth: (B, S), and the
+#: layers of each config (zamba2 at 12 of 54: its shared block used twice,
+#: so its gradient sums over both uses)
+FAMILY_GRAD = (1, 512)
+FAMILY_GRAD_LAYERS = {"granite-moe-3b-a800m": 2, "qwen2-moe-a2.7b": 2,
+                      "mamba2-780m": 2, "zamba2-2.7b": 12,
+                      "musicgen-medium": 2, "internvl2-26b": 2}
+#: mamba2 (no attention): float32 ``Model.loss`` on the card against the
+#: port's float32 run on the CPU of the same weights: the loss (relative)
+#: and each leaf of its gradient (of the leaf's max |g|): qat_chain's
+#: CPU-vs-card bar and lm_train's gradient bar
+SSM_LOSS_TOL = 1e-5
+SSM_GRAD_TOL = 1e-4
+#: kill-and-resume under deterministic algorithms, at published widths
+#: cut in depth so a checkpoint stays at 2-4 GB: each config's layers,
+#: then the steps, the checkpoint interval and the step the run is
+#: killed at (after the checkpoint of the step before)
+FAMILY_RESUME = {"mamba2-780m": 4, "granite-moe-3b-a800m": 2}
+FAMILY_RESUME_RUN = dict(steps=6, ckpt_every=3, kill_at=4)
+
+
+@contextlib.contextmanager
+def trained_at(arch: str, layers: int):
+    """``launch.train`` builds ``arch`` at its published widths cut to
+    ``layers`` layers: its module's ``get_config`` is wrapped for the run
+    (the launcher has no such flag, as the reference's has none)."""
+    real = lm_trainer.get_config
+
+    def cut(name, reduced=False):
+        cfg = real(name, reduced=reduced)
+        if name == arch and not reduced:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        return cfg
+    lm_trainer.get_config = cut
+    try:
+        yield
+    finally:
+        lm_trainer.get_config = real
+
+
+def family_argv(arch: str, steps: int, seq: int, ckpt_dir=None) -> list:
+    t = FAMILY_TRAIN
+    argv = ["--arch", arch, "--steps", str(steps), "--batch",
+            str(t["batch"]), "--seq", str(seq), "--microbatches",
+            str(t["microbatches"]), "--log-every", "1", "--device", "cuda"]
+    if arch in FAMILY_TRAIN_LR:
+        argv += ["--lr", str(FAMILY_TRAIN_LR[arch])]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", str(ckpt_dir), "--ckpt-every",
+                 str(FAMILY_RESUME_RUN["ckpt_every"])]
+    return argv
+
+
+def family_train_run(arch: str) -> dict:
+    """``launch.train`` of ``arch`` at published widths
+    (``FAMILY_TRAIN_DEPTH``, ``FAMILY_TRAIN``, ``FAMILY_TRAIN_SEQ``,
+    ``FAMILY_TRAIN_LR``) through ``launcher_train``: mamba2 launches no
+    kernel; zamba2 one forward and three backward per use of its shared
+    block."""
+    cfg = get_config(arch)
+    layers = FAMILY_TRAIN_DEPTH[arch] or cfg.n_layers
+    t = dict(FAMILY_TRAIN, seq=FAMILY_TRAIN_SEQ.get(arch,
+                                                    FAMILY_TRAIN["seq"]))
+    with trained_at(arch, layers):
+        out, _ = launcher_train(dataclasses.replace(cfg, n_layers=layers),
+                                family_argv(arch, t["steps"], t["seq"]), t,
+                                f"{arch} training")
+    out["lr"] = FAMILY_TRAIN_LR.get(arch, 3e-3)
+    return out
+
+
+def ssm_grad_check(cfg, B: int, S: int) -> dict:
+    """A model without attention (mamba2) in float32 at ``cfg``'s widths
+    and depth: ``Model.loss`` and its gradient on the card (no kernel
+    launched) against the port's own float32 run on the CPU of the same
+    weights and tokens: the loss within ``SSM_LOSS_TOL`` relative, each
+    leaf within ``SSM_GRAD_TOL`` of its largest |g|."""
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    model = lm_model(cfg)
+    toks = lm_tokens(cfg, B, S + 1)
+    counted = ("flash_attention",) + BWD_KERNELS
+    before = {n: _build.LAUNCH_COUNTS[n] for n in counted}
+    loss_c, g_c = loss_grads(model, toks)
+    launches = {n: _build.LAUNCH_COUNTS[n] - before[n] for n in counted}
+    check(not any(launches.values()),
+          f"{cfg.name} float32 loss and gradient launched {launches}")
+    host = get_model(cfg, device="cpu")
+    host.params = ParamTree(tree_map(lambda x: x.cpu(), model.param_tree()))
+    del model
+    loss_h, g_h = loss_grads(host, toks.cpu())
+    check(math.isfinite(loss_c) and
+          abs(loss_c - loss_h) <= SSM_LOSS_TOL * abs(loss_h),
+          f"{cfg.name} float32 loss: card {loss_c} vs CPU {loss_h}, not "
+          f"within {SSM_LOSS_TOL} relative")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g_c, g_h)):
+        scale = float(b.abs().max())
+        err = float((a.cpu() - b).abs().max())
+        check(bool(torch.isfinite(a).all()) and err <= SSM_GRAD_TOL * scale,
+              f"{cfg.name} float32 gradient, leaf {i} {tuple(b.shape)}: "
+              f"card vs CPU {err} > {SSM_GRAD_TOL} * {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    n_leaves = len(g_c)
+    del g_c, g_h, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, layers=cfg.n_layers, dtype="float32", B=B,
+                S=S, check="card vs the port on the CPU, same weights",
+                loss_card=loss_c, loss_cpu=loss_h,
+                loss_rel_diff=abs(loss_c - loss_h) / abs(loss_h),
+                loss_bar=SSM_LOSS_TOL, leaves=n_leaves,
+                max_rel_err_per_leaf=worst, bar=SSM_GRAD_TOL,
+                launches=launches)
+
+
+def family_resume(arch: str, layers: int) -> dict:
+    """``launch.train`` of ``arch`` at published widths cut to ``layers``
+    layers (``FAMILY_RESUME_RUN``) under deterministic algorithms: a
+    straight run, then ``resume_check`` against it, killed at ``kill_at``
+    with a checkpoint every ``ckpt_every`` steps (the guarantee
+    launch/train.py makes for any arch)."""
+    r = FAMILY_RESUME_RUN
+    seq = FAMILY_TRAIN["seq"]
+    t0 = time.perf_counter()
+    with deterministic(), trained_at(arch, layers):
+        with contextlib.redirect_stdout(io.StringIO()):
+            straight = lm_trainer.run(family_argv(arch, r["steps"], seq))
+        straight_s = time.perf_counter() - t0
+        res = resume_check(lambda d: family_argv(arch, r["steps"], seq, d),
+                           r["kill_at"], r["ckpt_every"], straight.state,
+                           straight.losses, arch)
+    del straight
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=layers, algorithms="deterministic", **r, seq=seq,
+                **res, straight_run_s=straight_s,
+                seconds=time.perf_counter() - t0)
+
+
+def phase_family_train(card: str) -> dict:
+    """The MoE, Mamba2, Zamba2, vlm and audio configs, one after another,
+    each freed before the next: training at published widths
+    (``family_train_run``), the gradient check at published widths and
+    cut depth (bf16 kernels vs the plain attention by PERF.md §2's rule,
+    with the vlm and audio frontends' positions and MoE's routing
+    compared; mamba2 float32 card vs CPU), and mamba2's and granite-moe's
+    kill-and-resume under deterministic algorithms."""
+    t_phase = time.perf_counter()
+    gc.collect()                      # the earlier phases' models
+    torch.cuda.empty_cache()
+    # counts to 0 just before this path, read just after
+    _build.reset_launch_counts()
+    configs = []
+    for arch, depth in FAMILY_TRAIN_DEPTH.items():
+        cfg = get_config(arch)
+        check_widths(cfg, FAMILY_WIDTHS[arch])
+        out = dict(arch=arch, family=cfg.family, params=cfg.param_count(),
+                   active_params=cfg.active_param_count(), hd=cfg.hd,
+                   train=family_train_run(arch))
+        cut = dataclasses.replace(cfg, n_layers=FAMILY_GRAD_LAYERS[arch])
+        t0 = time.perf_counter()
+        if attn_launches(cut):
+            check(bwd_route_for(cfg.dtype, cfg.hd) == TENSOR_CORES,
+                  f"{arch}'s backward is not on the tensor_cores route")
+            grad = lm_grad_check_bf16(cut, *FAMILY_GRAD,
+                                      frontend=cfg.frontend != "none")
+        else:
+            grad = ssm_grad_check(cut, *FAMILY_GRAD)
+        out["gradient"] = dict(grad, seconds=time.perf_counter() - t0)
+        if arch in FAMILY_RESUME:
+            out["resume"] = family_resume(arch, FAMILY_RESUME[arch])
+        configs.append(out)
+    return dict(phase="family_train", card=card, configs=configs,
+                seconds=time.perf_counter() - t_phase,
+                note="ms_per_step: host clock, median after the warm "
+                     "steps, each step ending when its loss reaches the "
+                     "host; model_flop_share: 6 N_active tokens / (step s "
+                     "x 989e12) at the depth trained; the profile: one "
+                     "more step of the same run; launches: the whole "
+                     "phase's (training, gradient checks, resumes)",
                 launches={k: _build.LAUNCH_COUNTS[k]
                           for k in ("flash_attention",) + BWD_KERNELS
                           + BWD_ROUTED[1:]})
@@ -4074,13 +4360,15 @@ LAUNCH_TRAIN_F32 = dict(arch=LM_ARCH, dtype="float32", seed=LM_SEED,
 # the loss of one fake-quant step (QuantSpec(bits=8)), same inputs
 LAUNCH_TRAIN_QUANT = dict(LAUNCH_TRAIN_F32, quant_bits=8, tol_grad=None,
                           tol_master=None)
-# bf16 (published dtype), timed: lm_train's batch, 6 steps (cut from 10
-# to make room for the fake-quant and rolling-window checks: only the
-# median step time has fewer samples), no oracle
+# bf16 (published dtype), timed: lm_train's batch, 6 steps, 2 of them warm
+# (cut from 10 and 3 to make room for the fake-quant, rolling-window and
+# family training checks: the loss windows, the last 3 steps against the
+# first 3, still do not overlap; the median step time has 4 samples), no
+# oracle
 LAUNCH_TRAIN_TIMED = dict(arch=LM_ARCH, seed=LM_SEED,
                           batch=[LM_TRAIN["batch"], LM_TRAIN["seq"]],
                           microbatches=[LM_TRAIN["microbatches"]],
-                          layouts=[[1, 2]], steps=6, warm=3, lr=3e-3,
+                          layouts=[[1, 2]], steps=6, warm=2, lr=3e-3,
                           warmup=5, oracle=False, remat=False)
 LAUNCH_FAMILY_TOL = 1e-4     # of the logit scale: lm_families' bar
 LAUNCH_MOE = dict(archs=["granite-moe-3b-a800m", "qwen2-moe-a2.7b"],
@@ -4435,14 +4723,17 @@ def main() -> None:
     emit(gemma2)
     quant = phase_quant_train(env["nvidia_smi"])
     emit(quant)
+    fam_train = phase_family_train(env["nvidia_smi"])
+    emit(fam_train)
     launch = phase_launch(env["nvidia_smi"], train, lm)
     emit(launch)
     phases = dict(main_path=main_path, sira_flow=sira, qat_chain=qat,
                   examples=examples, lm_prefill=lm, lm_families=fam,
                   serve=serve, lm_train=train, gemma2_train=gemma2,
-                  quant_train=quant, launch=launch)
+                  quant_train=quant, family_train=fam_train, launch=launch)
     launches = dict(main_path["launches"], **lm["launches"])
-    for phase in (examples, fam, serve, train, gemma2, quant, launch):
+    for phase in (examples, fam, serve, train, gemma2, quant, fam_train,
+                  launch):
         launches["flash_attention"] += phase["launches"]["flash_attention"]
     kernels = []
     for name, meta in KERNEL_META.items():
@@ -4461,6 +4752,8 @@ def main() -> None:
         t = times["flash_attention_bwd"][0]["kernels"][name]
         check(train["launches"][name] > 0,
               f"{name} was not launched on the lm_train path")
+        check(name.endswith(CUDA_CORES) or fam_train["launches"][name] > 0,
+              f"{name} was not launched on the family_train path")
         kernels.append(dict(
             name=name, route="cuda",
             source=BWD_TC_SOURCE if name.endswith(TENSOR_CORES)
@@ -4472,7 +4765,7 @@ def main() -> None:
                  "tiling; cuda_cores: float32, forced here at bf16 to "
                  "time it)",
             launches=train["launches"][name] + quant["launches"][name]
-            + launch["launches"].get(name, 0),
+            + fam_train["launches"][name] + launch["launches"].get(name, 0),
             # gemma2's launches are the hd-256 tiling's (the rows below)
             launches_by_path={k: ph["launches"].get(name, 0)
                               for k, ph in phases.items()

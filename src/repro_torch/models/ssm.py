@@ -95,8 +95,12 @@ def ssd_chunked(xh, dt, A, B_, C_, chunk: int):
     B_c = B_.to(f32).reshape(Bb, nc, chunk, N)              # G = 1
     C_c = C_.to(f32).reshape(Bb, nc, chunk, N)
 
-    # lam >= 0 is the *negative* log decay: step decay = exp(-lam)
-    csum = torch.cumsum(lam_c, dim=2)                       # (B,nc,c,H)
+    # lam >= 0 is the *negative* log decay: step decay = exp(-lam).  The
+    # running sum over the chunk is a product with a lower-triangular
+    # ones matrix, not torch.cumsum: CUDA's float cumsum has no
+    # deterministic form (torch.use_deterministic_algorithms raises)
+    tri = torch.ones((chunk, chunk), dtype=f32, device=xh.device).tril()
+    csum = torch.matmul(tri, lam_c)                         # (B,nc,c,H)
     # decay matrix L[i, j] = exp(-(csum_i - csum_j)) for j <= i, else 0:
     # seg is masked to +inf *before* the exp, which then gives 0 (for
     # j > i, exp(-seg) would overflow to inf at full width, and inf * 0

@@ -10,6 +10,7 @@ the reference's expression for expression (the STE is written
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -58,6 +59,48 @@ def times_reciprocal(t: torch.Tensor, n: int) -> torch.Tensor:
     return (t.to(wide) * inv).to(t.dtype)
 
 
+# ln 2 split for an exact reduction: ``n * LN2_HI`` is exact for |n| < 2**21.
+LN2_HI = 0.693147180369123816490
+LN2_LO = 1.90821492927058770002e-10
+
+
+def pot_scale(s: torch.Tensor) -> torch.Tensor:
+    """``exp2(ceil(log2(s)))`` as XLA compiles the reference's
+    ``jnp.exp2(jnp.ceil(jnp.log2(s)))`` on the CPU, bit for bit.
+
+    ``log2`` is ``log(s) / log(2)`` with ``log(2)`` rounded to ``s``'s
+    dtype, the division a product with that constant's reciprocal, and
+    ``exp2(n)`` is ``exp(n * log(2))``.  Each op runs in float32 (float64
+    for float64) and is rounded to ``s``'s dtype after it, as XLA widens
+    bf16 and float16; float16's reciprocal is a float16 constant.  XLA's
+    ``exp`` is correctly rounded at these points and the installed
+    ``torch.exp`` is not always (float32 ``n = 32``, float64 ``n = -27``),
+    so float32 takes ``exp`` in float64, and float64 reduces
+    ``n * log(2)`` exactly and scales ``1 + r`` by ``2**n``.  Subnormal
+    inputs and results of the widened dtype are flushed to zero, as
+    XLA's CPU code does.  The result is not always a power of two (float32
+    ``exp(32 * log(2))`` is ``2**32 + 512``)."""
+    dt = s.dtype
+    wide = torch.float64 if dt == torch.float64 else torch.float32
+    tiny = torch.finfo(wide).tiny
+    s = torch.where(s.to(wide).abs() < tiny, torch.zeros_like(s), s)
+    ln2 = torch.tensor(math.log(2.0), dtype=torch.float64).to(dt).to(wide)
+    inv = (torch.tensor(1.0, dtype=wide) / ln2).to(
+        torch.float16 if dt == torch.float16 else wide)
+    lg = torch.log(s.to(wide)).to(dt)
+    n = torch.ceil((lg.to(wide) * float(inv)).to(dt))
+    x = (n.to(wide) * float(ln2)).to(dt).double()
+    if dt == torch.float64:
+        fin = torch.isfinite(n)
+        k = torch.where(fin, n, torch.zeros_like(n))
+        r = (x - k * LN2_HI) - k * LN2_LO
+        y = torch.where(fin, (1.0 + r) * torch.exp2(k - 1) * 2.0,
+                        torch.exp(x))
+    else:
+        y = torch.exp(x).to(wide)
+    return torch.where(y.abs() < tiny, torch.zeros_like(y), y).to(dt)
+
+
 def compute_scale(x: torch.Tensor, spec: QuantSpec, eps: float = 1e-8,
                   amax: Optional[Callable[[torch.Tensor], torch.Tensor]]
                   = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -73,7 +116,8 @@ def compute_scale(x: torch.Tensor, spec: QuantSpec, eps: float = 1e-8,
     float32 product with the float32 reciprocal of ``qmax``, so the
     scale is ``top * float32(1 / qmax)`` in float32, cast once to ``x``'s
     dtype (:func:`times_reciprocal`).  The zero point keeps its
-    division, as the compiled reference does."""
+    division, as the compiled reference does, and a power-of-two scale
+    is :func:`pot_scale`'s."""
     amax = amax or (lambda t: t)
     if spec.granularity == "per_group":
         ax = spec.channel_axis % x.dim()
@@ -102,7 +146,7 @@ def compute_scale(x: torch.Tensor, spec: QuantSpec, eps: float = 1e-8,
                         min=eps)
         z = torch.round(spec.qmin - x_lo / s)
     if spec.pot:
-        s = torch.exp2(torch.ceil(torch.log2(s)))
+        s = pot_scale(s)
     return s, z
 
 

@@ -11,7 +11,7 @@ port has no HLO, so this module counts what the port's model code does:
   reference's padded count where "model" does not divide the real one);
 * attention: the S² products, causal (each query sees the keys up to it,
   within a window), 2·2·hd per query-key pair and head;
-* Mamba2's SSD: its four chunk products (``ssd_chunked``);
+* Mamba2's SSD: its five chunk products (``ssd_chunked``);
 * elementwise and norm work, by the sizes involved (estimates: a norm
   4 FLOPs per element, a softmax 5 per score, SwiGLU 5 per element, RoPE
   6, a residual add 1, the loss head 5 per logit, AdamW 15 per leaf
@@ -26,7 +26,8 @@ port has no HLO, so this module counts what the port's model code does:
   the shapes the model code allocates (estimates).
 
 A training step is the forward, twice its weight products and
-elementwise work for the backward, 3.5 times the attention's products
+elementwise work for the backward (once for a product with a constant,
+the SSD's running sum), 3.5 times the attention's products
 for the flash backward (dK/dV recomputes S and makes dP, dV and dK; dQ
 recomputes S and dP and makes dQ), and with ``remat`` a second forward of
 each layer but its last product where nothing saves that product's
@@ -240,6 +241,7 @@ def cell_cost(cfg, shape, layout, *, microbatches: int = 8,
 
     mm = ew = att = 0.0
     last = 0.0               # products that remat does not recompute
+    one_sided = 0.0          # products with a constant operand
     byts = 0.0
     coll = _Colls(layout)
     for p, is_attn, window in apps:
@@ -278,8 +280,9 @@ def cell_cost(cfg, shape, layout, *, microbatches: int = 8,
             mm, byts, ew = mm + mm_e, byts + by_e, ew + ew_e
             coll.reduce(T * d * a)               # the experts' shares
         if "mamba" in p:
-            mm_s, by_s, ew_s = _ssd(cfg, p["mamba"], b, S_new, kind)
+            mm_s, by_s, ew_s, one_s = _ssd(cfg, p["mamba"], b, S_new, kind)
             mm, byts, ew = mm + mm_s, byts + by_s, ew + ew_s
+            one_sided += one_s
             coll.reduce(T * 4)                   # the norm's sum of squares
             coll.reduce(T * d * a)
     # embedding, final norm, head
@@ -313,7 +316,8 @@ def cell_cost(cfg, shape, layout, *, microbatches: int = 8,
     else:
         passes = 4.0 if remat else 3.0            # fwd, 2 x bwd, remat
         recompute = mm - head_mm - last if remat else 0.0
-        mm, ew, byts = 3.0 * mm + recompute, ew * 3.0, byts * passes
+        mm, ew, byts = (3.0 * mm - one_sided + recompute, ew * 3.0,
+                        byts * passes)
         att = att * (5.5 if remat else 4.5)
         byts += param_bytes * passes * microbatches
         ew += 5.0 * T * cfg.vocab_padded + 15.0 * numel
@@ -356,8 +360,9 @@ def _experts(cfg, moe, b, S, a):
 
 
 def _ssd(cfg, mamba, b, S, kind):
-    """(products, bytes, elementwise) of one Mamba2 layer's SSD and conv
-    (the projections are per-token products, counted apart)."""
+    """(products, bytes, elementwise, products whose backward is one
+    product) of one Mamba2 layer's SSD and conv (the projections are
+    per-token products, counted apart)."""
     s = cfg.ssm
     d_in = _weight(mamba["out_proj"]).shape[0]
     H = d_in // s.head_dim
@@ -368,12 +373,16 @@ def _ssd(cfg, mamba, b, S, kind):
         mm = 2.0 * T * H * P * N
         ew = 2.0 * T * s.d_conv * ch + 8.0 * T * H * P * N
         byts = 2 * b * H * P * N * 4 + T * ch * 4
-        return mm, byts, ew
+        return mm, byts, ew, 0.0
     c = min(c, S)
-    mm = 2.0 * T * (c * N + H * c * P + 2 * H * P * N)
+    # the running sum of the decays (a product with a constant
+    # lower-triangular matrix: one product in the backward, not two),
+    # C·B, the intra-chunk product, the state in and out
+    csum = 2.0 * T * c * H
+    mm = csum + 2.0 * T * (c * N + H * c * P + 2 * H * P * N)
     ew = 2.0 * T * s.d_conv * ch + 4.0 * T * c * H + 10.0 * T * H * P
     byts = 4 * (T * c * H * 2 + T * H * P * 6 + T * ch * 2)
-    return mm, byts, ew
+    return mm, byts, ew, csum
 
 
 def _ssm_state_bytes(cfg, mamba, b) -> int:

@@ -26,42 +26,48 @@ def _is_namedtuple(x: Any) -> bool:
 def flatten(tree: Any) -> Tuple[List[Any], Spec]:
     """``tree`` → (its leaves in visiting order, its spec)."""
     leaves: List[Any] = []
-
-    def walk(node: Any) -> Spec:
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
-        if _is_namedtuple(node):
-            return ("namedtuple", type(node), tuple(walk(c) for c in node))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return (kind, tuple(walk(c) for c in node))
-        leaves.append(node)
-        return LEAF
-
-    spec = walk(tree)
+    spec = _walk(tree, leaves)
     return leaves, spec
+
+
+# _walk and _build are module functions, not closures of flatten and
+# unflatten: a closure that calls itself is a reference cycle, which would
+# keep the leaves (a step's gradients, say) alive until the next garbage
+# collection instead of freeing them when the caller drops them
+def _walk(node: Any, leaves: List[Any]) -> Spec:
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", tuple(keys),
+                tuple(_walk(node[k], leaves) for k in keys))
+    if _is_namedtuple(node):
+        return ("namedtuple", type(node),
+                tuple(_walk(c, leaves) for c in node))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return (kind, tuple(_walk(c, leaves) for c in node))
+    leaves.append(node)
+    return LEAF
 
 
 def unflatten(spec: Spec, leaves: List[Any]) -> Any:
     """The inverse of :func:`flatten`."""
     it = iter(leaves)
-
-    def build(s: Spec) -> Any:
-        kind = s[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(s[1], s[2])}
-        if kind == "namedtuple":
-            return s[1](*(build(c) for c in s[2]))
-        children = [build(c) for c in s[1]]
-        return children if kind == "list" else tuple(children)
-
-    out = build(spec)
+    out = _build(spec, it)
     if next(it, spec) is not spec:
         raise ValueError("more leaves than the spec has slots")
     return out
+
+
+def _build(s: Spec, it) -> Any:
+    kind = s[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(s[1], s[2])}
+    if kind == "namedtuple":
+        return s[1](*(_build(c, it) for c in s[2]))
+    children = [_build(c, it) for c in s[1]]
+    return children if kind == "list" else tuple(children)
 
 
 def leaves(tree: Any) -> List[Any]:

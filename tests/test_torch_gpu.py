@@ -674,6 +674,113 @@ def _lm_grads(model, toks):
     return torch.autograd.grad(loss, live)
 
 
+def _deterministic_grads(fn, inputs, monkeypatch):
+    """The gradient of ``fn(*inputs)`` (a scalar) with respect to each
+    input, twice on the card under deterministic algorithms (an op
+    without a deterministic form raises instead of passing by luck),
+    and once more on the CPU from the same inputs."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    runs = []
+    try:
+        for dev in ("cuda", "cuda", "cpu"):
+            live = [t.detach().to(dev).requires_grad_(t.is_floating_point())
+                    for t in inputs]
+            wrt = [t for t in live if t.requires_grad]
+            runs.append(torch.autograd.grad(fn(*live), wrt))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    return runs
+
+
+def _assert_card_grads(runs):
+    """Two card runs bit-equal; each gradient within 1e-5 of its largest
+    element of the CPU run's."""
+    first, again, cpu = runs
+    for a, b, c in zip(first, again, cpu):
+        assert torch.equal(a, b)
+        assert float((a.cpu() - c).abs().max()) <= 1e-5 * float(
+            c.abs().max())
+
+
+@pytest.mark.gpu
+def test_ssd_chunked_backward_is_deterministic_on_the_card(monkeypatch):
+    """``ssd_chunked``'s backward (the decay's running sum a product, no
+    ``torch.cumsum``, which has no deterministic CUDA form) at three
+    256-step chunks under deterministic algorithms: bit-equal over two
+    calls, within 1e-5 of the CPU's.  dt is drawn from the range Mamba2's
+    ``dt_bias`` starts it in, [1e-3, 0.1] (with softplus'd N(0, 1) steps
+    and A up to 16, float32's gradients on the CPU alone lie up to 3.6e-5
+    of their max from float64's: the decays' sums cancel)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from repro_torch.models.ssm import ssd_chunked
+    rng = np.random.default_rng(0)
+    B, S, H, P, N = 2, 768, 4, 16, 16
+    xh = _t(rng.normal(size=(B, S, H, P)).astype(np.float32))
+    dt = _t(np.exp(rng.uniform(np.log(1e-3), np.log(0.1), size=(B, S, H)))
+            .astype(np.float32))
+    A = _t(np.exp(np.linspace(0.0, np.log(16.0), H)).astype(np.float32))
+    Bm = _t(rng.normal(size=(B, S, 1, N)).astype(np.float32))
+    Cm = _t(rng.normal(size=(B, S, 1, N)).astype(np.float32))
+    w = _t(rng.normal(size=(B, S, H, P)).astype(np.float32))
+    w_state = _t(rng.normal(size=(B, H, P, N)).astype(np.float32))
+
+    def f(xh, dt, A, Bm, Cm, w, w_state):
+        y, state = ssd_chunked(xh, dt, A, Bm, Cm, 256)
+        return (y * w).sum() + (state * w_state).sum()
+    _assert_card_grads(_deterministic_grads(
+        f, [xh, dt, A, Bm, Cm, w, w_state], monkeypatch))
+
+
+@pytest.mark.gpu
+def test_mamba2_loss_backward_is_deterministic_on_the_card(monkeypatch):
+    """The reduced mamba2's ``Model.loss`` gradient on the card under
+    deterministic algorithms: bit-equal over two calls, each leaf within
+    1e-5 of its largest element of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    cfg = get_config("mamba2-780m", reduced=True)
+    model = get_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    flat, spec = flatten(model.param_tree())
+    toks = torch.randint(0, cfg.vocab, (2, 2 * cfg.ssm.chunk + 1),
+                         generator=torch.Generator().manual_seed(1))
+
+    def f(toks, *leaves_):
+        return model.loss(unflatten(spec, list(leaves_)), toks[:, :-1],
+                          toks[:, 1:])
+    _assert_card_grads(_deterministic_grads(f, [toks] + flat, monkeypatch))
+
+
+@pytest.mark.gpu
+def test_apply_moe_backward_is_deterministic_on_the_card(monkeypatch):
+    """``apply_moe`` at 8 experts x top-4, capacity 1.0 with a shared
+    input direction so slots are dropped (asserted): its backward (the
+    dispatch's gather and accumulating ``index_put``, the trash row) under
+    deterministic algorithms bit-equal over two calls, within 1e-5 of the
+    CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip(NEEDS_CARD)
+    from repro_torch.models.moe import apply_moe, init_moe, route
+    d, E, F_, k = 32, 8, 64, 4
+    p = init_moe(torch.Generator().manual_seed(0), d, E, F_, 1,
+                 torch.float32)
+    flat, spec = flatten(p)
+    rng = np.random.default_rng(1)
+    x = _t((rng.normal(size=(2, 64, d)) + 2.0 * rng.normal(size=d))
+           .astype(np.float32))
+    r = route(p, x, top_k=k, capacity_factor=1.0)
+    assert not bool(r.in_cap.all())
+
+    def f(x, *leaves_):
+        y, aux = apply_moe(unflatten(spec, list(leaves_)), x, top_k=k,
+                           capacity_factor=1.0)
+        return y.square().sum() + aux["router_z"]
+    _assert_card_grads(_deterministic_grads(f, [x] + flat, monkeypatch))
+
+
 @pytest.mark.gpu
 def test_lm_loss_on_the_card_has_a_gradient_through_the_kernels():
     """The reduced qwen2 on the card: ``Model.loss``'s gradient comes from

@@ -1,5 +1,6 @@
 """``repro_torch.launch.train`` on the CPU (``--device cpu``), reduced
-qwen2-1.5b: the reference's printed lines, losses equal to a loop over
+qwen2-1.5b (the printed lines and the resume also for the MoE, Mamba2,
+Zamba2, audio and vlm configs): the reference's printed lines, losses equal to a loop over
 ``make_train_step`` from the same seed (which ``test_torch_train.py``
 holds to the reference), a kill after a checkpoint and a resume bit-exact
 against an unbroken run, the QAT and gradient-compression flags, and the
@@ -21,6 +22,19 @@ from repro_torch.tree import leaves
 
 ARGV = ["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu", "--batch",
         "4", "--seq", "32"]
+#: the archs the launcher's lines and resume are held on: qwen2 and the
+#: MoE, Mamba2, Zamba2, audio and vlm families
+ARCHS = ["qwen2-1.5b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b",
+         "mamba2-780m", "zamba2-2.7b", "musicgen-medium", "internvl2-26b"]
+
+
+def _argv(arch):
+    """ARGV for ``arch``; Mamba2 and Zamba2 on 8-token sequences, where
+    the reference launcher's SSD gradient stays finite over six steps
+    (from 16 tokens on its gnorm turns NaN: reference fault 12,
+    ``tests/test_torch_family_train.py``)."""
+    seq = "8" if arch in ("mamba2-780m", "zamba2-2.7b") else "32"
+    return ["--arch", arch] + ARGV[2:-1] + [seq]
 
 
 def _shape_of(text):
@@ -30,8 +44,9 @@ def _shape_of(text):
             for line in text.splitlines()]
 
 
-def test_main_prints_the_reference_lines(capsys):
-    argv = ARGV + ["--steps", "3", "--log-every", "1"]
+@pytest.mark.parametrize("arch", ARCHS)
+def test_main_prints_the_reference_lines(arch, capsys):
+    argv = _argv(arch) + ["--steps", "3", "--log-every", "1"]
     assert train.main(argv) == 0
     got = capsys.readouterr().out
     assert j_train.main([a for a in argv if a not in ("--device", "cpu")]) \
@@ -67,11 +82,13 @@ class _Killed(Exception):
     pass
 
 
-def test_resume_after_a_kill_is_bit_exact(tmp_path, monkeypatch, capsys):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_resume_after_a_kill_is_bit_exact(arch, tmp_path, monkeypatch,
+                                          capsys):
     """Checkpoints every 3 steps; one run is killed when it reaches step 4
     (after the step-3 checkpoint), and the same command resumes it from
     there: its state and its step-6 checkpoint equal an unbroken run's."""
-    argv = ARGV + ["--steps", "6", "--ckpt-every", "3"]
+    argv = _argv(arch) + ["--steps", "6", "--ckpt-every", "3"]
     straight = train.run(argv + ["--ckpt-dir", str(tmp_path / "a")])
 
     class Killed(TokenPipeline):

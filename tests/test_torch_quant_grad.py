@@ -11,6 +11,9 @@ hold the port to ``jax.jit`` of the reference's functions:
   * ``compute_scale`` (per tensor, channel, group; asymmetric; float32
     and bf16), ``quantize_tensor``, three steps of ``compress_grads`` and
     ``compressed_psum`` over a one-rank axis: bit-equal;
+  * power-of-two scales (``pot=True``, C6) in float32, bf16 and float64,
+    and ``pot_scale`` alone over every bf16 and float16 value and the
+    float32 and float64 exponent ranges: bit-equal;
   * every config's weight clip masks (``|w| > qmax * s``): bit-equal;
   * ``Model.loss(quant=QuantSpec(8))``'s gradient on all ten reduced
     configs against ``jax.jit(jax.grad)`` of the reference's quantized
@@ -60,13 +63,13 @@ def _bits(a):
     """A float array's bit pattern, for an equality that tells -0 from 0
     and compares bf16 without widening."""
     a = np.asarray(a)
-    if a.dtype == jnp.bfloat16:
+    if a.dtype in (jnp.bfloat16, np.float16):
         return a.view(np.uint16)
     return a.view(np.uint32 if a.dtype == np.float32 else np.uint64)
 
 
 def _tbits(t):
-    if t.dtype == torch.bfloat16:
+    if t.dtype in (torch.bfloat16, torch.float16):
         return t.view(torch.int16).numpy().view(np.uint16)
     return _bits(t.numpy())
 
@@ -108,6 +111,82 @@ def test_compute_scale_equals_compiled_reference(name, dtype):
         eager_differs += int(not np.array_equal(_bits(se), _bits(sj)))
     if dtype == "float32":
         assert eager_differs > 0
+
+
+
+POT_DTYPES = ("float32", "bfloat16", "float64")
+POT_SPECS = dict(SCALE_SPECS, **{
+    "per_group 8": dict(bits=8, granularity="per_group", group_size=32)})
+# Of the 20 seeded tensors, how many the eager form
+# exp2(ceil(log2(s))) gives another scale than the compiled reference.
+NAIVE_DIFFERS = {("per_tensor", "bfloat16"): 20,
+                 ("per_channel", "bfloat16"): 20,
+                 ("asymmetric unsigned", "bfloat16"): 20,
+                 ("per_group 8", "bfloat16"): 20,
+                 ("per_channel", "float64"): 20}
+
+
+@pytest.mark.parametrize("dtype", POT_DTYPES)
+@pytest.mark.parametrize("name", list(POT_SPECS))
+def test_pot_scale_equals_compiled_reference(name, dtype):
+    """C6: ``compute_scale(..., pot=True)`` bit-equal to
+    ``jax.jit(compute_scale)`` on 20 seeded 64 x 256 tensors, per tensor,
+    channel and group, symmetric and asymmetric.  The eager form
+    ``exp2(ceil(log2(s)))`` of the same scale differs from the compiled
+    one on the tensors ``NAIVE_DIFFERS`` counts (asserted), so the test
+    tells the two apart."""
+    kw = dict(POT_SPECS[name], pot=True)
+    js, ts = JQuantSpec(**kw), QuantSpec(**kw)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    scale = jax.jit(lambda v: j_quant.compute_scale(v, js))
+    naive_differs = 0
+    with jax.enable_x64(True):
+        for seed in range(20):
+            x = np.random.default_rng(seed).normal(size=(64, 256))
+            sj, zj = scale(jnp.asarray(x, jdt))
+            st, zt = t_quant.compute_scale(torch.from_numpy(x).to(tdt), ts)
+            assert st.dtype == tdt and tuple(st.shape) == sj.shape
+            np.testing.assert_array_equal(_tbits(st), _bits(sj))
+            np.testing.assert_array_equal(_tbits(zt), _bits(zj))
+            s0, _ = t_quant.compute_scale(torch.from_numpy(x).to(tdt),
+                                          QuantSpec(**POT_SPECS[name]))
+            naive = torch.exp2(torch.ceil(torch.log2(s0)))
+            naive_differs += int(not np.array_equal(_tbits(naive),
+                                                    _bits(sj)))
+    assert naive_differs == NAIVE_DIFFERS.get((name, dtype), 0)
+
+
+@pytest.mark.parametrize("dtype", POT_DTYPES + ("float16",))
+def test_pot_scale_equals_compiled_reference_everywhere(dtype):
+    """``pot_scale`` against ``jax.jit(exp2(ceil(log2(s))))``: every bf16
+    and float16 value (±, zero, subnormals, inf, nan); in float32 and
+    float64 each power of two with its neighbours, both signs, the
+    extremes and 200000 seeded values over the whole exponent range."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    f = jax.jit(lambda s: jnp.exp2(jnp.ceil(jnp.log2(s))))
+    if dtype in ("bfloat16", "float16"):
+        x = torch.arange(0, 1 << 16, dtype=torch.int32).to(
+            torch.int16).view(tdt)
+        xn = x.float().numpy()
+    else:
+        npdt = np.dtype(dtype)
+        fi = np.finfo(npdt)
+        lo, hi = (-149, 127) if dtype == "float32" else (-1074, 1023)
+        p = np.array([2.0 ** k for k in range(lo, hi + 1)]).astype(npdt)
+        rng = np.random.default_rng(0)
+        xn = np.concatenate([
+            p, np.nextafter(p, np.inf), np.nextafter(p, 0), -p,
+            np.array([0.0, fi.max, fi.tiny, np.inf, np.nan], npdt),
+            (rng.uniform(0, 1, 200000)
+             * 2.0 ** rng.integers(lo + 30, hi, 200000)).astype(npdt)])
+        x = torch.from_numpy(xn)
+    with jax.enable_x64(True):
+        want = f(jnp.asarray(xn).astype(jdt))
+    got = t_quant.pot_scale(x)
+    nan = np.isnan(np.asarray(want, np.float64)) & torch.isnan(
+        got.double()).numpy()
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(_tbits(got)[~nan], _bits(want)[~nan])
 
 
 def test_zero_point_keeps_its_division():

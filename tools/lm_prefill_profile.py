@@ -65,7 +65,7 @@ def profile(model, toks) -> dict:
                   forward_peak=torch.cuda.max_memory_allocated(),
                   logits_bytes=logits.numel() * logits.element_size())
     del logits
-    prof = device_profile(lambda: model(toks))
+    prof = device_profile(lambda: model(toks), by_op=True)
     by_kernel = prof.pop("by_kernel")
     by_family: dict = {}
     for name, (ms, _) in by_kernel.items():
