@@ -177,11 +177,39 @@ use), then runs sixteen phases and prints one JSON object per line:
                this repo is on the serving path (paged attention is plain
                PyTorch, as in the reference); flash_attention runs in the
                ``Model.forward`` oracles
+  family_serve the serving engine on the six other configs it serves
+               paged (granite-moe-3b-a800m, qwen2-moe-a2.7b, glm4-9b,
+               granite-3-2b, internvl2-26b, musicgen-medium; the vlm and
+               audio ones token-only, as the reference's ``Request``), at
+               published widths with seeded weights, each freed before
+               the next, through ``serve``'s helpers: the residual
+               branches scaled up and probed (MoE: every expert's and
+               the shared expert's ``w_down``), the SIRA KV spec at full
+               width and the bf16 and int8 pools' bytes against their
+               layout (two bytes an element, one); float32 at the
+               families' cut depths (MoE at no-drop capacity):
+               ``decode_paged`` vs ``Model.forward`` (1e-4 / 1e-3 of the
+               logit scale, fp pool; MoE up to a near-tie routing flip)
+               and the batched, n-gram, prefix and preempt streams vs
+               solo with the fp and int8 pools (the near-tie rule; a
+               divergence that no logit near-tie explains must follow a
+               routing flip between the two engine runs whose first
+               expert difference is a near-tie, top-k margin under
+               1e-5); bfloat16 at full depth, published capacity, 8
+               slots, max_seq 4096: 8 requests (prompts 128-2048, 16-32
+               new tokens; four, then four after 3 steps) with the fp
+               and the int8 pool, timed.  Then zamba2-2.7b in static
+               mode, float32, 12 of its 54 layers (two uses of its
+               shared attention block): four 512-token prompts batched
+               equal each served alone; a mixed-length batch and paged
+               mode refused.  No hand-written kernel but flash_attention
+               launches, and that one in the oracles only
   lm_train     the LM's gradient and training (after the earlier phases'
                models are freed).  The backward kernels over an edge grid
-               (float32, bf16, f16; hd 64 to 256; GQA groups 1, 2 and
-               6; q_offset, window, soft-cap, ragged lengths, rows that
-               see no key, 16 x 12 heads; the layer shape 1 x 4096): the
+               (float32, bf16, f16; hd 64 to 256; GQA groups 1, 2, 6
+               and 16; q_offset, window, soft-cap, ragged lengths, rows
+               that see no key, 16 x 12 heads; the layer shape 1 x 4096):
+               the
                forward's lse within 1e-5 of the plain one, D within
                1e-5 of rowsum(dO*out), dq, dk, dv on each route the
                case takes (bf16/f16 on tensor_cores, hd 256 on its own
@@ -205,9 +233,10 @@ use), then runs sixteen phases and prints one JSON object per line:
                tokens/s,
                the model-FLOP share, peak memory, one more step profiled
                (device ms by kernel family, idle share); then the same
-               run with a checkpoint every 6 steps killed at step 6,
-               and the same command resumes there and ends in the
-               straight run's losses and state, bit for bit
+               run at 4 of the 28 layers, straight and with a checkpoint
+               every 6 steps killed at step 6: the same command resumes
+               there and ends in the straight run's losses and state,
+               bit for bit
   gemma2_train gemma2-2b (head dim 256, window 4096 on its even layers,
                soft-cap 50) on the tensor-core backward's hd-256 tiling.
                bf16 at its published widths cut to 2 of its 26 layers,
@@ -237,12 +266,14 @@ use), then runs sixteen phases and prints one JSON object per line:
                of each backward kernel per microbatch (dK/dV and dQ all
                on tensor_cores), the loss falling (last 3 below the
                first 3), ms per step, tokens/s, peak memory
-  family_train the MoE, Mamba2, Zamba2, vlm and audio configs trained at
-               published widths, one after another: granite-moe-3b-a800m
-               (32 layers), qwen2-moe-a2.7b (4 of 24), mamba2-780m (48),
-               zamba2-2.7b (54), musicgen-medium (48), internvl2-26b (4
-               of 48), each through ``launch.train`` (a cut one with its
-               ``get_config`` wrapped; bf16 params, float32 masters, 2 x
+  family_train the MoE, Mamba2, Zamba2, vlm, audio and the other dense
+               configs trained at published widths, one after another:
+               granite-moe-3b-a800m (32 layers), qwen2-moe-a2.7b (4 of
+               24), mamba2-780m (48), zamba2-2.7b (54), musicgen-medium
+               (48), internvl2-26b (4 of 48), glm4-9b (8 of 40; GQA
+               group 16), granite-3-2b (40), each through
+               ``launch.train`` (a cut one with its ``get_config``
+               wrapped; bf16 params, float32 masters, 2 x
                2048 tokens a step in 2 microbatches, 6 steps, token-only
                as the reference's launcher): the reference's lines, one
                forward and three backward launches per attention layer
@@ -2371,9 +2402,10 @@ def run_worker(job: str, out: str) -> None:
     its own, its result and the kernel launches it counted (from 0 in
     this process) in OUT.  Jobs: ``float32:ARCH`` (``lm_float32_checks``
     of ``float32_model(ARCH)``), ``serve_inv:fp`` / ``serve_inv:int8``
-    (``serve_invariants`` on ``serve_float32_model``), ``serve_static``
-    and ``serve_static:window`` (``serve_static`` of
-    ``SERVE_STATIC_WINDOW``)."""
+    (``serve_invariants`` on ``serve_float32_model``), ``serve_static``,
+    ``family_serve:ARCH:fp`` / ``family_serve:ARCH:int8`` (the same for
+    ``ARCH``, cut; the fp job also ``serve_paged_vs_forward``), and
+    ``serve_static:KEY`` (``serve_static`` of ``SERVE_STATICS[KEY]``)."""
     kind, _, arg = job.partition(":")
     if kind == "float32":
         t0 = time.perf_counter()
@@ -2383,20 +2415,31 @@ def run_worker(job: str, out: str) -> None:
                                          else FAMILY_F32))
         res["seconds"] = time.perf_counter() - t0
     elif kind == "serve_inv":
-        m32, spec_i8 = serve_float32_model()
+        m32, spec_i8, _ = serve_float32_model()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         res = serve_invariants(m32, arg, "fp" if arg == "fp" else spec_i8)
         res["seconds"] = time.perf_counter() - t0
+    elif kind == "family_serve":
+        arch, _, pool = arg.rpartition(":")
+        t0 = time.perf_counter()
+        m32, spec_i8, gain = serve_float32_model(arch)
+        _build.reset_launch_counts()
+        res = dict(layers=m32.cfg.n_layers, branch_gain=gain)
+        if pool == "fp":
+            res["paged_vs_forward"] = serve_paged_vs_forward(m32, spec_i8)
+        res["invariants"] = serve_invariants(
+            m32, pool, "fp" if pool == "fp" else spec_i8)
+        res["seconds"] = time.perf_counter() - t0
     elif kind == "serve_static":
         _build.reset_launch_counts()
         t0 = time.perf_counter()
-        res = serve_static(SERVE_STATIC_WINDOW if arg == "window"
-                           else SERVE_STATIC)
+        res = serve_static(SERVE_STATICS[arg])
         res["seconds"] = time.perf_counter() - t0
     else:
         raise ValueError(f"unknown worker job {job!r}")
-    res["launches"] = {k: _build.LAUNCH_COUNTS[k] for k in KERNEL_META}
+    res["launches"] = {k: _build.LAUNCH_COUNTS[k]
+                       for k in (*KERNEL_META, *BWD_KERNELS)}
     pathlib.Path(out).write_text(json.dumps(res))
 
 
@@ -2609,6 +2652,13 @@ SERVE_STATIC = ("mamba2-780m", 4, 512, 32, 6)
 # the whole sequence (those past the window show that the wrap is right)
 SERVE_STATIC_WINDOW = ("gemma2-2b", 2, 4080, 32, 2)
 SERVE_WINDOW_FROM = 4064
+# static mode on the Zamba2 hybrid, the same fields: float32 at 12 of its
+# 54 layers (its shared attention block applies after every 6 Mamba2
+# layers, so the cut keeps two uses of it)
+SERVE_STATIC_HYBRID = ("zamba2-2.7b", 4, 512, 32, 12)
+#: the static specs by worker job key (``serve_static:KEY``)
+SERVE_STATICS = {"": SERVE_STATIC, "window": SERVE_STATIC_WINDOW,
+                 "hybrid": SERVE_STATIC_HYBRID}
 # bf16 serving, timed: 16 requests (prompt 128-2048, 16-64 new tokens:
 # cut from 32-128, whose four variants took 95 s on one H100 80GB HBM3's
 # host, 700 W; a cut in depth would change the decode step that is
@@ -2632,6 +2682,16 @@ STREAM_TIE = 1e-5
 # streams still sit on one token; from 1024 they move
 SERVE_BRANCH_GAIN = 1024.0
 SERVE_SELF_SHARE = 0.1     # at most this share of self-predictions then
+# the tied granite configs' greedy streams still sit on one token at 1024
+# (granite-moe's branch is a sum of gated 512-wide experts); the gains
+# where they move (distinct tokens of three SERVE_INV requests served
+# alone, one H100 80GB HBM3, 700 W; float32 at the cut depth, bf16 whole):
+# granite-moe 1024 [1, 1, 1] and [1, 1, 1], 16384 [4, 1, 4] and [2, 2,
+# 1]; granite-3-2b 1024 [2, 3, 1] and [5, 2, 1], 4096 [15, 9, 1] and [6,
+# 6, 3].  A pre-norm layer reads its input normalized, so a gain changes
+# only how much the embedding weighs against the branches
+SERVE_BRANCH_GAINS = {"granite-moe-3b-a800m": 16384.0,
+                      "granite-3-2b": 4096.0}
 
 
 def serve_requests(vocab, lens, seed, prefix_len=0):
@@ -2674,22 +2734,29 @@ def serve_paged_vs_forward(model, spec_i8) -> dict:
     (teacher forcing), against one ``Model.forward`` of the whole sequence
     through the flash-attention kernel: within 1e-4 (prefill positions)
     and 1e-3 (decode positions) of the logit scale with the fp pool, the
-    bars of ``lm_prefill``; the all-int8 pool's distance and top-1
-    agreement reported, with no bar."""
+    bars of ``lm_prefill``, up to the first near-tie routing flip of an
+    MoE config (``first_routing_flip``); the all-int8 pool's distance and
+    top-1 agreement reported, with no bar."""
     cfg = model.cfg
     P, D = SERVE_F32
     toks = lm_tokens(cfg, 1, P + D)[0]
-    with torch.inference_mode():
+    with torch.inference_mode(), routing_log() as log_f:
         truth = model(toks[None])[0, :, :cfg.vocab]
     scale = float(truth.abs().max())
     out = dict(dtype="float32", prompt=P, decoded=D, chunk=SERVE_CHUNK,
                page_size=SERVE_PAGE, logit_scale=scale)
     for name, spec in (("fp", KVCacheSpec.all_fp(cfg.n_layers)),
                        ("int8", spec_i8)):
-        got = paged_logits(model, spec, toks, P)
-        err = (got - truth).abs().amax(dim=-1)
+        with routing_log() as log_p:
+            got = paged_logits(model, spec, toks, P)
+        # the int8 pool moves the router's input by more than a tie
+        n, flips = first_routing_flip(log_f, log_p, cfg.n_layers, P + D) \
+            if name == "fp" else (P + D, None)
+        err = (got[:n] - truth[:n]).abs().amax(dim=-1)
         res = dict(prefill_max_abs_err=float(err[:P].max()),
-                   decode_max_abs_err=float(err[P:].max()),
+                   decode_max_abs_err=float(err[P:].max()) if n > P
+                   else None,
+                   positions_compared=n, routing_flips=flips,
                    rms_rel_err=float((got - truth).square().mean().sqrt())
                    / scale,
                    top1_agreement=float((got.argmax(-1) ==
@@ -2698,7 +2765,7 @@ def serve_paged_vs_forward(model, spec_i8) -> dict:
             check(res["prefill_max_abs_err"] <= 1e-4 * scale,
                   f"paged prefill vs forward {res['prefill_max_abs_err']} "
                   f"> 1e-4 * {scale}")
-            check(res["decode_max_abs_err"] <= 1e-3 * scale,
+            check(n <= P or res["decode_max_abs_err"] <= 1e-3 * scale,
                   f"paged decode vs forward {res['decode_max_abs_err']} "
                   f"> 1e-3 * {scale}")
         out[name] = res
@@ -2706,28 +2773,111 @@ def serve_paged_vs_forward(model, spec_i8) -> dict:
     return out
 
 
-def stream_check(prompt, got, want, logits_of) -> dict:
+def stream_check(prompt, got, want, logits_of, routing=None) -> dict:
     """Two greedy streams of one prompt are equal, or first differ at a
     near-tie: where the logits of their common prefix (``logits_of``) have
     their two top tokens, the two streams' picks, within ``STREAM_TIE`` of
-    the logit scale.  The comparison ends at that flip (at most one)."""
+    the logit scale.  An MoE model's streams may also first differ after a
+    near-tie routing flip: ``routing`` is (``want``'s run's
+    ``engine_routing``, ``got``'s, layers), and the first (position,
+    layer) of the common prefix whose experts differ between the two runs
+    must be a near-tie (``engine_routing_flip``).  The comparison ends at
+    the first difference."""
     n = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
              None)
     if n is None:
         check(len(got) == len(want), f"stream lengths {len(got)} and "
                                      f"{len(want)} differ")
         return dict(equal=len(want))
-    seq = torch.as_tensor(np.concatenate([prompt, want[:n]]), device=DEV)
-    lg = logits_of(seq)
+    seq = np.concatenate([prompt, want[:n]])
+    lg = logits_of(torch.as_tensor(seq, device=DEV))
     top = torch.topk(lg, 2)
     margin, scale = float(top.values[0] - top.values[1]), \
         float(lg.abs().max())
-    check(set(top.indices.tolist()) == {got[n], want[n]}
-          and margin < STREAM_TIE * scale,
-          f"streams differ at token {n} ({got[n]} vs {want[n]}) where the "
-          f"top-2 logits are {margin} apart of {scale}: not a near-tie")
-    return dict(equal=n, flip=dict(position=n, margin=margin,
-                                   logit_scale=scale))
+    if set(top.indices.tolist()) == {got[n], want[n]} and \
+            margin < STREAM_TIE * scale:
+        return dict(equal=n, flip=dict(position=n, margin=margin,
+                                       logit_scale=scale))
+    flip = engine_routing_flip(seq, *routing) if routing else None
+    check(flip is not None, f"streams differ at token {n} ({got[n]} vs "
+                            f"{want[n]}) where the top-2 logits are "
+                            f"{margin} apart of {scale} and no expert "
+                            f"differs before it: not a near-tie")
+    return dict(equal=n, flip=dict(position=n, kind="routing", **flip))
+
+
+@contextlib.contextmanager
+def engine_routing(engine, n_layers):
+    """Record an MoE engine run's routing by token prefix: {the bytes of
+    a sequence's tokens 0..p: (expert ids (layers, k), top-(k+1) router
+    probabilities (layers, k+1)) at position p}, from every
+    ``decode_paged`` call (prefill chunks, decode rows, verify windows).
+    A position computed again (a re-prefill after preemption, a verify
+    window's rejected tail under other tokens) keeps its last
+    computation, and a prefix-cached one that of the request which
+    computed it."""
+    seen, step, prefill = {}, engine._step, engine._prefill
+    filling = []                         # the entry being prefilled
+
+    def prefill_(slot, entry):
+        filling.append(entry)
+        try:
+            return prefill(slot, entry)
+        finally:
+            filling.pop()
+
+    def step_(tokens, table, lengths):
+        with routing_log() as log:
+            logits = step(tokens, table, lengths)
+        ids, top = (t.cpu().numpy()
+                    for t in routing_by_layer(log, n_layers))
+        sched = engine.scheduler
+        rows = {0: filling[-1]} if filling else {
+            i: sched.slots[i].entry for i in sched.active_slots()}
+        for b, entry in rows.items():
+            L = int(lengths[b])
+            full = np.concatenate([np.asarray(entry.seq[:L], np.int64),
+                                   tokens[b].astype(np.int64)])
+            for t in range(tokens.shape[1]):
+                seen[full[:L + t + 1].tobytes()] = (ids[:, b, t],
+                                                    top[:, b, t])
+        return logits
+    engine._step, engine._prefill = step_, prefill_
+    try:
+        yield seen
+    finally:
+        del engine._step, engine._prefill
+
+
+def engine_routing_flip(seq, want_seen, got_seen, n_layers):
+    """The first (position, layer) of ``seq`` (two streams' common prefix)
+    whose experts differ between two ``engine_routing`` records, which
+    ``first_routing_flip`` holds to a near-tie on the routing up to it
+    (its margin is ``want_seen``'s run's); None where none differs."""
+    seq = np.asarray(seq, np.int64)
+    recs = []
+    for name, seen in (("solo", want_seen), ("batched", got_seen)):
+        rows = [seen.get(seq[:p + 1].tobytes()) for p in range(len(seq))]
+        check(all(r is not None for r in rows),
+              f"the {name} run routed no token at a position of the "
+              f"common prefix")
+        recs.append([np.stack([r[j] for r in rows], axis=1)
+                     for j in (0, 1)])            # (layers, S, .)
+    (ids_a, top_a), (ids_b, top_b) = recs
+    diff = (ids_a != ids_b).any(axis=-1)          # (layers, S)
+    if not diff.any():
+        return None
+    pos = int(diff.any(axis=0).argmax())
+    layer = int(diff[:, pos].argmax())
+
+    def upto(ids, top):         # layers 0..layer, each (1, pos + 1, .)
+        return [(torch.as_tensor(ids[i, None, :pos + 1]),
+                 torch.as_tensor(top[i, None, :pos + 1]))
+                for i in range(layer + 1)]
+    first_routing_flip(upto(ids_a, top_a), upto(ids_b, top_b), layer + 1,
+                       pos + 1)
+    return dict(token=pos, layer=layer,
+                margin=float(top_a[layer, pos, -2] - top_a[layer, pos, -1]))
 
 
 def serve_midstream(engine, reqs, first):
@@ -2746,7 +2896,9 @@ def serve_invariants(model, spec_name, spec) -> dict:
     a shared 256-token prefix, a pool of half the worst case) equals the
     same request served alone on the same pool type, but for one near-tie
     flip.  The near-tie's logits come from ``Model.forward`` (fp pool) or
-    a paged prefill on the pool's spec (int8: what the stream saw)."""
+    a paged prefill on the pool's spec (int8: what the stream saw); an MoE
+    model's engine runs record their routing (``engine_routing``) for the
+    routing near-tie of ``stream_check``."""
     cfg = model.cfg
     if spec_name == "fp":
         def logits_of(seq):
@@ -2760,9 +2912,15 @@ def serve_invariants(model, spec_name, spec) -> dict:
     inv = serve_requests(cfg.vocab, SERVE_INV_REQS, LM_SEED + 3)
     pre = serve_requests(cfg.vocab, SERVE_PREFIX_REQS, LM_SEED + 4,
                          SERVE_PREFIX)
+    moe = cfg.family == "moe"
+
+    def routed(engine):
+        return engine_routing(engine, cfg.n_layers) if moe else \
+            contextlib.nullcontext()
     solo = ServingEngine(model, ServingConfig(
         **dict(SERVE_INV, batch_slots=1), kv_cache=spec))
-    want = {id(r): solo.generate([r])[0] for r in inv + pre}
+    with routed(solo) as solo_seen:
+        want = {id(r): solo.generate([r])[0] for r in inv + pre}
     cold_chunks = sum(-(-len(r.prompt) // SERVE_CHUNK) for r in pre)
     out = dict(solo_decode_steps=solo.metrics.decode_steps)
     for variant, reqs, kw in (
@@ -2772,8 +2930,10 @@ def serve_invariants(model, spec_name, spec) -> dict:
             ("preempt", inv, dict(num_pages=worst // 2))):
         eng = ServingEngine(model, ServingConfig(**SERVE_INV, **kw,
                                                  kv_cache=spec))
-        got = serve_midstream(eng, reqs, 4)
-        checks = [stream_check(r.prompt, g, want[id(r)], logits_of)
+        with routed(eng) as seen:
+            got = serve_midstream(eng, reqs, 4)
+        routing = (solo_seen, seen, cfg.n_layers) if moe else None
+        checks = [stream_check(r.prompt, g, want[id(r)], logits_of, routing)
                   for r, g in zip(reqs, got)]
         m = eng.metrics.summary()
         res = dict(flips=[dict(request=i, **c["flip"])
@@ -2805,26 +2965,34 @@ def serve_invariants(model, spec_name, spec) -> dict:
 
 def scale_branches(model, f: float) -> None:
     """Multiply every layer's residual-branch outputs by ``f``: ``wo`` and
-    ``w_down``, or, where a post-norm rescales each branch's output
-    (gemma2), the post-norms' gain ``1 + s`` (s -> f·s + f - 1)."""
+    the MLP's ``w_down`` (MoE: every expert's and the shared expert's; the
+    combine is linear in them and the router reads the branch's input, so
+    the routing stays), or, where a post-norm rescales each branch's
+    output (gemma2), the post-norms' gain ``1 + s`` (s -> f·s + f - 1)."""
     with torch.no_grad():
         for p in model.params["layers"]:
             if model.cfg.post_norms:
                 for k in ("post_ln1", "post_ln2"):
                     p[k].mul_(f).add_(f - 1.0)
-            else:
-                p["attn"]["wo"].mul_(f)
+                continue
+            p["attn"]["wo"].mul_(f)
+            if "moe" not in p:
                 p["mlp"]["w_down"].mul_(f)
+                continue
+            for part in ("experts", "shared"):
+                if part in p["moe"]:
+                    p["moe"][part]["w_down"].mul_(f)
 
 
 def serve_branch_gain(model) -> dict:
     """Multiply every layer's residual-branch outputs by 4 (exact in bf16;
-    ``scale_branches``) up to ``SERVE_BRANCH_GAIN``, probing each gain on
-    256 tokens: the share of positions whose greedy pick is their own
-    input token, the distinct picks, the logit scale and the median top-2
-    margin."""
+    ``scale_branches``) up to ``SERVE_BRANCH_GAIN`` (or the config's own in
+    ``SERVE_BRANCH_GAINS``), probing each gain on 256 tokens: the share of
+    positions whose greedy pick is their own input token, the distinct
+    picks, the logit scale and the median top-2 margin."""
     cfg = model.cfg
     toks = lm_tokens(cfg, 1, 256)
+    target = SERVE_BRANCH_GAINS.get(cfg.name, SERVE_BRANCH_GAIN)
     gain, probes = 1.0, []
     while True:
         with torch.inference_mode():
@@ -2835,7 +3003,7 @@ def serve_branch_gain(model) -> dict:
             distinct_picks=int(picks.unique().numel()),
             logit_scale=float(lg.abs().max()),
             median_top2_margin=float((top[:, 0] - top[:, 1]).median())))
-        if gain >= SERVE_BRANCH_GAIN:
+        if gain >= target:
             break
         scale_branches(model, 4.0)
         gain *= 4.0
@@ -2847,9 +3015,10 @@ def serve_branch_gain(model) -> dict:
 
 def serve_spec_report(model):
     """The SIRA spec at full width: the default (every layer's decision
-    and reason) and the one the int8 pool uses, derived with ``max_step``
-    raised to the default's worst step rounded up to a tenth, so that
-    every layer goes int8."""
+    and reason) and the one the int8 pool uses, with ``max_step`` raised
+    to the default's worst step rounded up to a tenth, so that every layer
+    goes int8 (``KVCacheSpec.at_max_step``: the layers' proven bounds
+    decided anew, not analysed again)."""
     t0 = time.perf_counter()
     default = derive_kv_spec(model)
     derive_s = time.perf_counter() - t0
@@ -2859,7 +3028,7 @@ def serve_spec_report(model):
                 for l in spec.layers]
     worst = max(steps(default))
     max_step = math.ceil(worst * 10) / 10
-    spec_i8 = derive_kv_spec(model, max_step=max_step)
+    spec_i8 = default.at_max_step(max_step)
     check(spec_i8.n_int8 == model.cfg.n_layers,
           f"max_step {max_step}: {spec_i8.n_int8} int8 layers")
     reasons: dict = {}
@@ -3124,42 +3293,87 @@ def serve_bf16(model, spec_i8) -> dict:
         runs[name], streams[name] = serve_timed(model, spec, kw, rs, half)
         gc.collect()
         torch.cuda.empty_cache()
-    fp, i8 = streams["fp"], streams["int8"]
-    agree = [sum(a == b for a, b in zip(x, y)) / len(x)
-             for x, y in zip(fp, i8)]
-    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
-                  len(x)) for x, y in zip(fp, i8)]
     return dict(
         dtype="bfloat16", config=SERVE_BF16, requests=SERVE_BF16_N,
         prompt_tokens=[int(n) for n, _ in lens],
         new_tokens=[int(m) for _, m in lens],
-        runs=runs,
-        int8_vs_fp=dict(mean_token_agreement=float(np.mean(agree)),
-                        per_request=agree, first_divergence=first),
+        runs=runs, int8_vs_fp=int8_vs_fp(streams["fp"], streams["int8"]),
         decode_profile=serve_decode_profile(model, reqs))
 
 
-def serve_float32_model():
-    """(the float32 copy of the served bf16 model, the int8 pool's spec):
-    seeded bf16 weights, ``wo`` and ``w_down`` x``SERVE_BRANCH_GAIN``
-    (``serve_branch_gain``), the spec from ``serve_spec_report``; what
-    ``phase_serve`` builds, for a worker process."""
-    cfg = get_config(LM_ARCH)
+def int8_vs_fp(fp, i8) -> dict:
+    """The int8 pool's streams against the fp pool's: each request's share
+    of equal tokens and its first differing token, and their mean."""
+    agree = [sum(a == b for a, b in zip(x, y)) / len(x)
+             for x, y in zip(fp, i8)]
+    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                  len(x)) for x, y in zip(fp, i8)]
+    return dict(mean_token_agreement=float(np.mean(agree)),
+                per_request=agree, first_divergence=first)
+
+
+def serve_pools(cfg, spec_i8) -> dict:
+    """The device bytes of ``SERVE_BF16``'s page pools with the fp (bf16)
+    and the int8 spec, each held to its layout: K and V of every layer,
+    ``num_pages`` pages (every slot's worst case and the trash page) of
+    ``SERVE_PAGE`` x KV heads x hd elements, an element in the weights'
+    type (bf16: two bytes) in the fp pool and one byte in the int8 pool
+    (whose scales are per head, not per element)."""
+    pools = {}
+    fp_width = torch.empty((), dtype=cfg.dtype).element_size()
+    for name, spec, width in (
+            ("bf16", KVCacheSpec.all_fp(cfg.n_layers), fp_width),
+            ("int8", spec_i8, 1)):
+        cache = PagedKVCache(cfg, spec, SERVE_BF16["batch_slots"],
+                             SERVE_BF16["max_seq"], page_size=SERVE_PAGE,
+                             device=DEV)
+        pools[name] = cache.hbm_bytes()
+        want = width * cfg.n_layers * 2 * cache.num_pages * SERVE_PAGE * \
+            cfg.n_kv_heads * cfg.hd
+        check(pools[name] == want, f"{cfg.name}'s {name} pool takes "
+                                   f"{pools[name]} bytes, not {want}")
+        del cache
+    torch.cuda.empty_cache()
+    return pools
+
+
+def serve_float32_model(arch: str = LM_ARCH):
+    """(the float32 copy of the served bf16 model, the int8 pool's spec,
+    ``serve_branch_gain``'s report):
+    seeded bf16 weights, ``wo`` and ``w_down`` scaled by the config's
+    gain (``serve_branch_gain``), the spec from ``serve_spec_report``; what
+    ``phase_serve`` builds, for a worker process.  Another config is cut
+    to its ``FAMILY_F32_LAYERS`` (the init draws the same first layers,
+    and the spec is per layer, so both are the full model's first
+    layers), MoE at no-drop capacity."""
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, n_layers=FAMILY_F32_LAYERS.get(arch, cfg.n_layers))
     bf16 = lm_model(cfg)
-    serve_branch_gain(bf16)
+    gain = serve_branch_gain(bf16)
     spec_i8, _ = serve_spec_report(bf16)
-    m32 = get_model(dataclasses.replace(cfg, dtype=torch.float32))
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    if cfg.family == "moe":
+        cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    m32 = get_model(cfg32)
     m32.params = bf16.params.to(torch.float32)
-    return m32, spec_i8
+    del bf16
+    gc.collect()
+    torch.cuda.empty_cache()       # for the other processes on the card
+    return m32, spec_i8, gain
 
 
-#: the serve phase's host-bound checks, run beside its untimed work, all
-#: at once (fewer than MAX_WORKERS)
+#: the serve phase's host-bound checks, run beside its untimed work (with
+#: family_serve's, ``main``)
 SERVE_JOBS = ["serve_static:window", "serve_inv:fp", "serve_inv:int8",
               "serve_static"]
 
 
-def phase_serve(card: str) -> dict:
+def phase_serve(card: str, jobs: Workers) -> dict:
+    """qwen2-1.5b served at full width.  ``jobs`` runs ``SERVE_JOBS`` (and
+    family_serve's float32 checks) beside the spec and paged-vs-forward
+    checks; the bf16 runs are timed after all of them have ended."""
     t_phase = time.perf_counter()
     gc.collect()                      # the earlier phases' models
     torch.cuda.empty_cache()
@@ -3170,35 +3384,20 @@ def phase_serve(card: str) -> dict:
     check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
            cfg.vocab) == (28, 1536, 12, 2, 128, 151936),
           f"{LM_ARCH} is not at its published width")
-    with tempfile.TemporaryDirectory() as tmp:
-        jobs = Workers(pathlib.Path(tmp), SERVE_JOBS)
-        try:
-            bf16 = lm_model(cfg)
-            gain = serve_branch_gain(bf16)
-            spec_i8, spec_report = serve_spec_report(bf16)
-            pools = {name: PagedKVCache(cfg, spec, SERVE_BF16["batch_slots"],
-                                        SERVE_BF16["max_seq"],
-                                        page_size=SERVE_PAGE,
-                                        device=DEV).hbm_bytes()
-                     for name, spec in (
-                         ("bf16", KVCacheSpec.all_fp(cfg.n_layers)),
-                         ("int8", spec_i8))}
-            check(2 * pools["int8"] == pools["bf16"],
-                  f"the int8 pool is not half the bf16 pool: {pools}")
-            spec_report["pool_bytes"] = pools
-            torch.cuda.empty_cache()
-            m32 = get_model(dataclasses.replace(cfg, dtype=torch.float32))
-            m32.params = copy.deepcopy(bf16.params).to(torch.float32)
-            t0 = time.perf_counter()
-            paged = serve_paged_vs_forward(m32, spec_i8)
-            paged["seconds"] = time.perf_counter() - t0
-            del m32
-            gc.collect()
-            torch.cuda.empty_cache()
-            jobs_s = jobs.wait()
-            res = {job: jobs.result(job) for job in SERVE_JOBS}
-        finally:
-            jobs.stop()
+    bf16 = lm_model(cfg)
+    gain = serve_branch_gain(bf16)
+    spec_i8, spec_report = serve_spec_report(bf16)
+    spec_report["pool_bytes"] = serve_pools(cfg, spec_i8)
+    m32 = get_model(dataclasses.replace(cfg, dtype=torch.float32))
+    m32.params = copy.deepcopy(bf16.params).to(torch.float32)
+    t0 = time.perf_counter()
+    paged = serve_paged_vs_forward(m32, spec_i8)
+    paged["seconds"] = time.perf_counter() - t0
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs_s = jobs.wait()
+    res = {job: jobs.result(job) for job in SERVE_JOBS}
     inv = {name: res[f"serve_inv:{name}"] for name in ("fp", "int8")}
     inv["seconds"] = jobs_s
     static = res["serve_static"]
@@ -3222,9 +3421,134 @@ def phase_serve(card: str) -> dict:
                      "PyTorch): flash_attention runs only in the "
                      "Model.forward oracles; the invariants (fp, int8) "
                      "and the static mode ran in processes of their own "
-                     "beside the spec and paged-vs-forward checks "
-                     "(invariants.seconds: their wall time together); "
-                     "the bf16 runs were timed alone",
+                     "beside the spec and paged-vs-forward checks, with "
+                     "family_serve's float32 checks (invariants.seconds: "
+                     "the wall time of all those processes); the bf16 "
+                     "runs were timed alone",
+                launches=launches)
+
+
+# --------------------------------------------------------------------------
+# phase: family_serve — the engine on the six other configs it serves
+# paged, and the Zamba2 hybrid in static mode
+# --------------------------------------------------------------------------
+
+#: the configs served paged besides qwen2-1.5b: every other family with
+#: full-context attention (the vlm and audio ones token-only: the
+#: reference's ``Request`` carries prompt tokens, and ``decode_paged``
+#: takes no frontend)
+FAMILY_SERVE = ("granite-moe-3b-a800m", "qwen2-moe-a2.7b", "glm4-9b",
+                "granite-3-2b", "internvl2-26b", "musicgen-medium")
+# bf16 serving at full depth, timed, at ``SERVE_BF16``: 8 requests
+# (prompts in [128, 2049), new tokens in [16, 33)), four first and four
+# after 3 steps, with the fp and the int8 pool
+FAMILY_SERVE_N = 8
+FAMILY_SERVE_PROMPT = (128, 2049)
+FAMILY_SERVE_NEW = (16, 33)
+#: the float32 checks, in processes of their own (``run_worker``), the
+#: MoE configs and zamba2 first (their host-bound steps are the longest);
+#: at most MAX_WORKERS at once, their float32 copies (3.5-11.6 GB each:
+#: qwen2-moe at 4 layers is the largest) fit the card together
+FAMILY_SERVE_JOBS = [
+    f"family_serve:{a}:{pool}" for a in FAMILY_SERVE[:2]
+    for pool in ("fp", "int8")] + ["serve_static:hybrid"] + [
+    f"family_serve:{a}:{pool}" for a in ("internvl2-26b", "glm4-9b",
+                                         "granite-3-2b", "musicgen-medium")
+    for pool in ("fp", "int8")]
+
+
+def family_serve_bf16(arch: str) -> dict:
+    """One config at published widths and depth, bf16, seeded weights:
+    the residual branches scaled up (``serve_branch_gain``, probed), the
+    SIRA KV spec (``serve_spec_report``) and the pools' bytes
+    (``serve_pools``), then ``FAMILY_SERVE_N`` requests timed with the fp
+    and with the int8 pool (``serve_timed``, after one warm-up run), at the
+    published MoE capacity; the streams must move."""
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    check_widths(cfg, FAMILY_WIDTHS[arch])
+    model = lm_model(cfg)
+    check(model.supports_paged, f"{arch} is not served paged")
+    gain = serve_branch_gain(model)
+    spec_i8, report = serve_spec_report(model)
+    report["pool_bytes"] = serve_pools(cfg, spec_i8)
+    rng = np.random.default_rng(LM_SEED + 10)
+    lens = list(zip(rng.integers(*FAMILY_SERVE_PROMPT, FAMILY_SERVE_N),
+                    rng.integers(*FAMILY_SERVE_NEW, FAMILY_SERVE_N)))
+    reqs = serve_requests(cfg.vocab, lens, LM_SEED + 11)
+    serve_timed(model, "fp", {}, serve_requests(cfg.vocab, ((40, 4),),
+                                                LM_SEED + 9), 1)  # warm-up
+    runs, streams = {}, {}
+    for name, spec in (("fp", "fp"), ("int8", spec_i8)):
+        runs[name], streams[name] = serve_timed(model, spec, {}, reqs,
+                                                FAMILY_SERVE_N // 2)
+        check(sum(len(set(o)) for o in streams[name]) > len(reqs),
+              f"{arch} bf16 {name} pool: every stream repeats one token")
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = dict(dtype="bfloat16", config=SERVE_BF16, requests=FAMILY_SERVE_N,
+                prompt_tokens=[int(n) for n, _ in lens],
+                new_tokens=[int(m) for _, m in lens], runs=runs,
+                int8_vs_fp=int8_vs_fp(streams["fp"], streams["int8"]))
+    if cfg.family == "moe":
+        bf16["capacity_factor"] = cfg.moe.capacity_factor
+    return dict(arch=arch, family=cfg.family, params=cfg.param_count(),
+                active_params=cfg.active_param_count(), branch_gain=gain,
+                kv_spec=report, bf16=bf16,
+                seconds=time.perf_counter() - t0)
+
+
+def phase_family_serve(card: str, jobs: Workers) -> dict:
+    """``FAMILY_SERVE``, one config after another, each freed before the
+    next: the float32 checks at the families' cut depths, which ``jobs``
+    ran in processes of their own during the serve phase
+    (``family_serve:ARCH:POOL``: paged vs forward, and the invariants with
+    each pool), and zamba2-2.7b's static mode (``SERVE_STATIC_HYBRID``);
+    then the bf16 runs (``family_serve_bf16``), alone."""
+    t_phase = time.perf_counter()
+    gc.collect()                      # the earlier phases' models
+    torch.cuda.empty_cache()
+    # counts to 0 just before this path, read just after (with the counts
+    # of the processes that ran the float32 checks and the static mode)
+    _build.reset_launch_counts()
+    res = {job: jobs.result(job) for job in FAMILY_SERVE_JOBS}
+    archs = []
+    for arch in FAMILY_SERVE:
+        out = family_serve_bf16(arch)
+        fp, i8 = (res[f"family_serve:{arch}:{p}"] for p in ("fp", "int8"))
+        out.update(float32_layers=fp["layers"],
+                   float32_branch_gain=fp["branch_gain"],
+                   paged_vs_forward=fp["paged_vs_forward"],
+                   invariants=dict(fp=fp["invariants"],
+                                   int8=i8["invariants"],
+                                   seconds=[fp["seconds"], i8["seconds"]]))
+        if get_config(arch).frontend != "none":
+            out["served"] = "token-only: the reference's Request carries " \
+                            "prompt tokens, decode_paged takes no frontend"
+        archs.append(out)
+    counted = (*KERNEL_META, *BWD_KERNELS)
+    launches = {k: _build.LAUNCH_COUNTS[k] + sum(
+        r["launches"][k] for r in res.values()) for k in counted}
+    check(launches["flash_attention"] > 0 and not any(
+              launches[k] for k in counted if k != "flash_attention"),
+          f"family_serve: launches {launches}")
+    return dict(phase="family_serve", seed=LM_SEED, card=card, archs=archs,
+                static=res["serve_static:hybrid"],
+                seconds=time.perf_counter() - t_phase,
+                cut="float32 checks at the depths of FAMILY_F32_LAYERS; "
+                    "zamba2's static mode at 12 of 54 layers; the bf16 "
+                    "runs at full depth",
+                note="times: host clock; tokens/s and TTFT from the "
+                     "engine's ServingMetrics; paged attention is plain "
+                     "PyTorch: flash_attention runs only in the "
+                     "Model.forward oracles and the branch-gain probes; "
+                     "the float32 checks ran in processes of their own, "
+                     f"at most {MAX_WORKERS} at a time, during the serve "
+                     "phase (each job's seconds beside its result); the "
+                     "bf16 runs ran alone",
                 launches=launches)
 
 
@@ -3234,11 +3558,13 @@ def phase_serve(card: str) -> dict:
 # --------------------------------------------------------------------------
 
 # (name, B, Sq, Sk, H, KV, hd, keywords): each in float32, bfloat16 and
-# float16.  hd 64, 80, 128, 200, 256; GQA groups 1, 2 and 6; Sq = Sk and
+# float16.  hd 64, 80, 128, 200, 256; GQA groups 1, 2, 6 and 16 (glm4-9b's
+# 32 query heads over 2, whose dK/dV sums 16 partials a group); Sq = Sk and
 # Sq < Sk with q_offset; window and logit_cap (gemma2); lengths no tile
 # divides; rows that see no key; a batch whose B x H fills the card
 FA_BWD_GRID = [
     ("g6 hd128 ragged", 1, 200, 200, 12, 2, 128, {}),
+    ("g16 hd128 ragged", 1, 200, 200, 32, 2, 128, {}),
     ("g1 hd64 cap", 2, 130, 130, 4, 4, 64, dict(logit_cap=30.0)),
     ("g6 hd80 window", 1, 150, 150, 6, 1, 80, dict(window=37)),
     ("hd256 window cap", 1, 100, 100, 4, 2, 256,
@@ -3279,6 +3605,10 @@ LM_GRAD16_FLOOR = 1e-3
 #: left out of the median
 LM_TRAIN = dict(batch=2, seq=2048, microbatches=2, steps=12, ckpt_every=6,
                 warm=3)
+#: the layers of the kill-and-resume run (a checkpoint of the whole
+#: model's state is 21.6 GB, and writing and reading it took most of the
+#: phase; at 4 layers the tied embedding dominates it)
+LM_RESUME_LAYERS = 4
 
 
 #: the backward's kernels per route ("name:route"), as counted and
@@ -3725,23 +4055,30 @@ def lm_train_run(card: str) -> dict:
     """``launch.train`` at published widths under deterministic
     algorithms (cuBLAS's fixed workspace set for this check only).  A
     straight run of ``steps`` steps through ``launcher_train`` (the loss
-    falling: the mean of the last 5 below that of the first 5), its final
-    state kept on the host; then ``resume_check``: killed when it reaches
-    step ``ckpt_every`` (so its last checkpoint is the middle one, as if
-    the final one had been deleted), resumed there, and its final state
-    equal to the straight run's bit for bit.  (The runs call
-    ``launch.train.run``, the body of ``main``, which hands back the
-    state; a checkpoint of this state is 21.6 GB, so the runs write two
-    and read one.)"""
+    falling: the mean of the last 5 below that of the first 5); then the
+    same at ``LM_RESUME_LAYERS`` layers, straight and through
+    ``resume_check``: killed when it reaches step ``ckpt_every`` (so its
+    last checkpoint is the middle one, as if the final one had been
+    deleted), resumed there, and its final state equal to the straight
+    run's bit for bit.  (The runs call ``launch.train.run``, the body of
+    ``main``, which hands back the state.)"""
     t = LM_TRAIN
     t0 = time.perf_counter()
     with deterministic():
-        out, kept = launcher_train(get_config(LM_ARCH),
-                                   train_argv(t["steps"]), t, "training",
-                                   window=5, keep=True)
-        out["resume"] = resume_check(
-            lambda d: train_argv(t["steps"], d), t["ckpt_every"],
-            t["ckpt_every"], kept, out["losses"], "training")
+        out = launcher_train(get_config(LM_ARCH), train_argv(t["steps"]), t,
+                             "training", window=5)
+        t1 = time.perf_counter()
+        with trained_at(LM_ARCH, LM_RESUME_LAYERS):
+            with contextlib.redirect_stdout(io.StringIO()):
+                straight = lm_trainer.run(train_argv(t["steps"]))
+            straight_s = time.perf_counter() - t1
+            out["resume"] = dict(
+                layers=LM_RESUME_LAYERS, straight_run_s=straight_s,
+                **resume_check(lambda d: train_argv(t["steps"], d),
+                               t["ckpt_every"], t["ckpt_every"],
+                               straight.state, straight.losses,
+                               "training"))
+        del straight
     out.update(card=card, ckpt_every=t["ckpt_every"],
                seconds=time.perf_counter() - t0)
     return out
@@ -3784,7 +4121,7 @@ def phase_lm_train(card: str) -> dict:
 
 
 def launcher_train(cfg, argv, t, what: str, profile: bool = True,
-                   window: int = 3, keep: bool = False) -> tuple:
+                   window: int = 3) -> dict:
     """``launch.train.run(argv)`` of ``cfg`` (its attention layers, ``t``'s
     microbatches, steps and warm steps): the reference's lines, one
     forward and three backward launches per attention layer (a hybrid:
@@ -3793,8 +4130,7 @@ def launcher_train(cfg, argv, t, what: str, profile: bool = True,
     ``window`` steps below that of the first ``window``), ms per step (the
     median after the warm steps, each step ending when its loss reaches
     the host), tokens/s, the model-FLOP share, peak memory, the state's
-    bytes and, with ``profile``, one more step profiled.  -> (those, the
-    run's final state on the host with ``keep``, else None)."""
+    bytes and, with ``profile``, one more step profiled."""
     counted = ("flash_attention",) + BWD_KERNELS + BWD_ROUTED[1:]
     t0 = time.perf_counter()
     held = torch.cuda.memory_allocated()
@@ -3842,11 +4178,6 @@ def launcher_train(cfg, argv, t, what: str, profile: bool = True,
         free_of_card=torch.cuda.get_device_properties(0).total_memory
         - peak, state_bytes=lm_dryrun.state_bytes(run.state),
         launches=launches, run_s=run_s)
-    # kept before the profiled step, which updates the donated state in
-    # place
-    kept = tree_map(lambda x: None if x is None else
-                    x.detach().to("cpu", copy=True), run.state) \
-        if keep else None
     if profile:
         prof = device_profile(lambda: run.step_fn(
             run.state, run.pipeline.batch_at(t["steps"])))
@@ -3859,7 +4190,7 @@ def launcher_train(cfg, argv, t, what: str, profile: bool = True,
     gc.collect()
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
-    return out, kept
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3889,7 +4220,7 @@ def gemma2_train_run() -> dict:
     # counts to 0 just before the path, read just after
     _build.reset_launch_counts()
     return launcher_train(get_config(GEMMA2_ARCH), argv, t,
-                          "gemma2 training")[0]
+                          "gemma2 training")
 
 
 def phase_gemma2_train(card: str) -> dict:
@@ -4013,8 +4344,8 @@ def quant_train_run() -> dict:
             str(t["batch"]), "--seq", str(t["seq"]), "--microbatches",
             str(t["microbatches"]), "--quant-bits", str(QUANT_BITS),
             "--log-every", "1", "--device", "cuda"]
-    out, _ = launcher_train(get_config(LM_ARCH), argv, t,
-                            "fake-quant training", profile=False)
+    out = launcher_train(get_config(LM_ARCH), argv, t,
+                         "fake-quant training", profile=False)
     out.update(quant=f"QuantSpec(bits={QUANT_BITS})", launches_per_step={
         n: v // t["steps"] for n, v in out["launches"].items()})
     return out
@@ -4053,11 +4384,14 @@ def phase_quant_train(card: str) -> dict:
 #: the depth each trains at (None: all its layers).  The state takes 18 B
 #: a parameter (bf16 params, float32 masters, two float32 moments, float32
 #: gradient sums): qwen2-moe-a2.7b (14.3 B params) and internvl2-26b (19.9
-#: B) are cut to 4 layers (~52 and ~48.6 GB of state); the others train
-#: whole (granite-moe 59.4 GB, zamba2 43.6, musicgen 32.7, mamba2 15.4)
+#: B) are cut to 4 layers (~52 and ~48.6 GB of state), glm4-9b (9.4 B,
+#: ~169 GB whole; its untied embedding and head alone 1.24 B, ~22 GB) to
+#: 8 of 40 (~52 GB); the others train whole (granite-moe 59.4 GB, granite-3-2b
+#: 45.6, zamba2 43.6, musicgen 32.7, mamba2 15.4)
 FAMILY_TRAIN_DEPTH = {"granite-moe-3b-a800m": None, "qwen2-moe-a2.7b": 4,
                       "mamba2-780m": None, "zamba2-2.7b": None,
-                      "musicgen-medium": None, "internvl2-26b": 4}
+                      "musicgen-medium": None, "internvl2-26b": 4,
+                      "glm4-9b": 8, "granite-3-2b": None}
 #: the global batch and length, the microbatches, the steps and the warm
 #: steps left out of the median (bf16 params, float32 masters; token-only,
 #: as the reference's launcher: its pipeline has no frontend)
@@ -4071,15 +4405,26 @@ FAMILY_TRAIN_SEQ = {"zamba2-2.7b": 1024}
 #: makes the loss rise (internvl2-26b at 4 layers: 11.79, 13.57, 27.28,
 #: 25.34, 22.70): AdamW moves each weight by about lr a step, and the
 #: weights are drawn at d_model^-0.5, so internvl2-26b (d_model 6144)
-#: takes 3e-3 x 1536 / 6144
-FAMILY_TRAIN_LR = {"internvl2-26b": 7.5e-4}
+#: takes 3e-3 x 1536 / 6144; granite-3-2b (d_model 2048), whose loss rose
+#: at 3e-3 (561.7 then 604.8 at its second and third steps), the same
+#: rule.  glm4-9b (8 of its 40 layers): six steps cannot tell its rates
+#: apart.  At 3e-3 its losses swing (12.45, 13.03, 21.95, 18.18, 8.32,
+#: 18.78) and pass the bar (means 15.81 -> 15.09), while the rule's
+#: 1.125e-3 and 1.5e-3 and 2.25e-3 fail it; of the eight rates tried
+#: (1.5e-4 to 3e-3), 5e-4 is the one whose losses fall at four of five
+#: steps and end lowest (12.45 to 5.95), so it takes 5e-4 (one H100 80GB
+#: HBM3, 700 W).  Its falling loss is weak evidence; its bf16 gradient
+#: check (``FAMILY_GRAD``) carries its correctness
+FAMILY_TRAIN_LR = {"internvl2-26b": 7.5e-4, "glm4-9b": 5e-4,
+                   "granite-3-2b": 2.25e-3}
 #: the gradient checks at published widths, cut in depth: (B, S), and the
 #: layers of each config (zamba2 at 12 of 54: its shared block used twice,
 #: so its gradient sums over both uses)
 FAMILY_GRAD = (1, 512)
 FAMILY_GRAD_LAYERS = {"granite-moe-3b-a800m": 2, "qwen2-moe-a2.7b": 2,
                       "mamba2-780m": 2, "zamba2-2.7b": 12,
-                      "musicgen-medium": 2, "internvl2-26b": 2}
+                      "musicgen-medium": 2, "internvl2-26b": 2,
+                      "glm4-9b": 2, "granite-3-2b": 2}
 #: mamba2 (no attention): float32 ``Model.loss`` on the card against the
 #: port's float32 run on the CPU of the same weights: the loss (relative)
 #: and each leaf of its gradient (of the leaf's max |g|): qat_chain's
@@ -4137,9 +4482,9 @@ def family_train_run(arch: str) -> dict:
     t = dict(FAMILY_TRAIN, seq=FAMILY_TRAIN_SEQ.get(arch,
                                                     FAMILY_TRAIN["seq"]))
     with trained_at(arch, layers):
-        out, _ = launcher_train(dataclasses.replace(cfg, n_layers=layers),
-                                family_argv(arch, t["steps"], t["seq"]), t,
-                                f"{arch} training")
+        out = launcher_train(dataclasses.replace(cfg, n_layers=layers),
+                             family_argv(arch, t["steps"], t["seq"]), t,
+                             f"{arch} training")
     out["lr"] = FAMILY_TRAIN_LR.get(arch, 3e-3)
     return out
 
@@ -4213,7 +4558,8 @@ def family_resume(arch: str, layers: int) -> dict:
 
 
 def phase_family_train(card: str) -> dict:
-    """The MoE, Mamba2, Zamba2, vlm and audio configs, one after another,
+    """The MoE, Mamba2, Zamba2, vlm, audio and other dense configs
+    (``FAMILY_TRAIN_DEPTH``), one after another,
     each freed before the next: training at published widths
     (``family_train_run``), the gradient check at published widths and
     cut depth (bf16 kernels vs the plain attention by PERF.md §2's rule,
@@ -4711,12 +5057,21 @@ def main() -> None:
             emit(fam)
         finally:
             f32.stop()
-    serve = phase_serve(env["nvidia_smi"])
-    emit(serve)
-    check(serve["launches"]["flash_attention"] > 0 and
-          all(serve["launches"][k] == 0
-              for k in ("int_matmul", "multithreshold", "quantize")),
-          f"serve: launches {serve['launches']}")
+    # the float32 checks of serve and family_serve start here, in
+    # processes of their own; serve waits for them all before it times
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = Workers(pathlib.Path(tmp), SERVE_JOBS + FAMILY_SERVE_JOBS)
+        try:
+            serve = phase_serve(env["nvidia_smi"], jobs)
+            emit(serve)
+            check(serve["launches"]["flash_attention"] > 0 and
+                  all(serve["launches"][k] == 0
+                      for k in ("int_matmul", "multithreshold", "quantize")),
+                  f"serve: launches {serve['launches']}")
+            fam_serve = phase_family_serve(env["nvidia_smi"], jobs)
+            emit(fam_serve)
+        finally:
+            jobs.stop()
     train = phase_lm_train(env["nvidia_smi"])
     emit(train)
     gemma2 = phase_gemma2_train(env["nvidia_smi"])
@@ -4729,11 +5084,12 @@ def main() -> None:
     emit(launch)
     phases = dict(main_path=main_path, sira_flow=sira, qat_chain=qat,
                   examples=examples, lm_prefill=lm, lm_families=fam,
-                  serve=serve, lm_train=train, gemma2_train=gemma2,
+                  serve=serve, family_serve=fam_serve, lm_train=train,
+                  gemma2_train=gemma2,
                   quant_train=quant, family_train=fam_train, launch=launch)
     launches = dict(main_path["launches"], **lm["launches"])
-    for phase in (examples, fam, serve, train, gemma2, quant, fam_train,
-                  launch):
+    for phase in (examples, fam, serve, fam_serve, train, gemma2, quant,
+                  fam_train, launch):
         launches["flash_attention"] += phase["launches"]["flash_attention"]
     kernels = []
     for name, meta in KERNEL_META.items():

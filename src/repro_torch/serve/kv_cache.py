@@ -107,6 +107,32 @@ class KVCacheSpec:
         return KVCacheSpec(tuple(LayerKVSpec(int8=False, reason="fp cache")
                                  for _ in range(n_layers)))
 
+    def at_max_step(self, max_step: float) -> "KVCacheSpec":
+        """The spec ``derive_kv_spec`` gives for ``max_step`` on the same
+        weights and ranges: each layer decided anew from its proven
+        bounds (``layer_kv_spec``), with no analysis run again."""
+        return KVCacheSpec(tuple(layer_kv_spec(l.k_amax, l.v_amax, max_step)
+                                 for l in self.layers))
+
+
+def layer_kv_spec(k_amax: np.ndarray, v_amax: np.ndarray,
+                  max_step: float) -> LayerKVSpec:
+    """One layer's decision from its proven per-head |K| and |V| bounds:
+    int8 with step amax / 127 per head, or fp where the bound is not
+    finite or the step would exceed ``max_step``."""
+    worst = float(max(k_amax.max(), v_amax.max()))
+    if not np.isfinite(worst):
+        return LayerKVSpec(int8=False, k_amax=k_amax, v_amax=v_amax,
+                           reason="non-finite SIRA bound")
+    if worst / 127.0 > max_step:
+        return LayerKVSpec(int8=False, k_amax=k_amax, v_amax=v_amax,
+                           reason=f"int8 step {worst / 127.0:.3g} > "
+                                  f"max_step {max_step:g}")
+    return LayerKVSpec(int8=True,
+                       k_scale=np.maximum(k_amax / 127.0, 1e-8),
+                       v_scale=np.maximum(v_amax / 127.0, 1e-8),
+                       k_amax=k_amax, v_amax=v_amax)
+
 
 def _float64(w) -> np.ndarray:
     """A weight as a float64 numpy array, dequantizing packed int8."""
@@ -189,24 +215,9 @@ def derive_kv_spec(model, *, x_range: Tuple[float, float] = (-4., 4.),
             amax = amax.reshape(KV, hd).max(axis=1)
             return amax * (ROPE_HULL if rope else 1.0)
 
-        k_amax = head_amax(r["k_mm"], rope=True)
-        v_amax = head_amax(r["v_mm"], rope=False)
-        worst = float(max(k_amax.max(), v_amax.max()))
-        if not np.isfinite(worst):
-            layers.append(LayerKVSpec(int8=False, k_amax=k_amax,
-                                      v_amax=v_amax,
-                                      reason="non-finite SIRA bound"))
-        elif worst / 127.0 > max_step:
-            layers.append(LayerKVSpec(
-                int8=False, k_amax=k_amax, v_amax=v_amax,
-                reason=f"int8 step {worst / 127.0:.3g} > "
-                       f"max_step {max_step:g}"))
-        else:
-            layers.append(LayerKVSpec(
-                int8=True,
-                k_scale=np.maximum(k_amax / 127.0, 1e-8),
-                v_scale=np.maximum(v_amax / 127.0, 1e-8),
-                k_amax=k_amax, v_amax=v_amax))
+        layers.append(layer_kv_spec(head_amax(r["k_mm"], rope=True),
+                                    head_amax(r["v_mm"], rope=False),
+                                    max_step))
     return KVCacheSpec(tuple(layers))
 
 

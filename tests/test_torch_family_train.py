@@ -1,5 +1,6 @@
-"""Training parity of the MoE, Mamba2, Zamba2, vlm and audio families:
-three steps of the port's ``make_train_step`` (two microbatches; the vlm
+"""Training parity of the MoE, Mamba2, Zamba2, vlm and audio families
+and of the dense glm4-9b, granite-3-2b and gemma2-2b (its local and
+global layers, window and soft-caps): three steps of the port's ``make_train_step`` (two microbatches; the vlm
 and audio configs with a ``frontend_embed`` in the batch) against
 ``jax.jit`` of the reference's ``make_train_step``, from the reference's
 weights carried across by ``load_reference_params``, on the CPU, at the
@@ -45,7 +46,8 @@ from repro_torch.train import init_train_state, make_train_step
 from test_torch_train import _dotted
 
 FAMILY_ARCHS = ["granite-moe-3b-a800m", "qwen2-moe-a2.7b", "mamba2-780m",
-                "zamba2-2.7b", "musicgen-medium", "internvl2-26b"]
+                "zamba2-2.7b", "musicgen-medium", "internvl2-26b", "glm4-9b",
+                "granite-3-2b", "gemma2-2b"]
 SSD_ARCHS = ("mamba2-780m", "zamba2-2.7b")
 STEPS = 3
 BATCH, SEQ = 4, 64

@@ -359,6 +359,9 @@ FLASH_CASES = {
     "zamba2 hd 80": (1, 300, 300, 32, 32, 80, {}),
     "qwen2-moe": (1, 256, 256, 16, 16, 128, {}),
     "granite-moe": (1, 256, 256, 24, 8, 64, {}),
+    # glm4-9b's 32 query heads over 2 KV heads: the tensor-core dK/dV's
+    # GQA sum (``flash_bwd_dkdv_sum``) adds 16 heads' partials a group
+    "glm4-9b g16 ragged": (1, 200, 200, 32, 2, 128, {}),
 }
 FLASH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
                 "f16": torch.float16}

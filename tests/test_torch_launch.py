@@ -22,10 +22,12 @@ from repro_torch.tree import leaves
 
 ARGV = ["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu", "--batch",
         "4", "--seq", "32"]
-#: the archs the launcher's lines and resume are held on: qwen2 and the
-#: MoE, Mamba2, Zamba2, audio and vlm families
+#: the archs the launcher's lines and resume are held on: every registered
+#: config (qwen2, the MoE, Mamba2, Zamba2, audio and vlm families, and the
+#: dense glm4-9b, granite-3-2b and gemma2-2b)
 ARCHS = ["qwen2-1.5b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b",
-         "mamba2-780m", "zamba2-2.7b", "musicgen-medium", "internvl2-26b"]
+         "mamba2-780m", "zamba2-2.7b", "musicgen-medium", "internvl2-26b",
+         "glm4-9b", "granite-3-2b", "gemma2-2b"]
 
 
 def _argv(arch):
